@@ -1,0 +1,130 @@
+"""Kernel-expression AST for the PyTorch port.
+
+Counterpart of ``gaussianprocessfundamentals_tpu/kernels/base.py:55-213``.
+A kernel is an ``nn.Module`` that holds its own hyperparameters as tensors
+named as in the JAX package (``lengthscale``, ``variance``, ``c``), so
+``.to(device, dtype)`` moves them with the module. ``gram(x1, x2)`` maps
+``x1: [..., n, d]``, ``x2: [..., m, d]`` to ``[..., n, m]``.
+
+The AST serialises to the same JSON as the JAX package (``to_dict`` /
+``kernel_from_dict``), so one spec builds a kernel in either package.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+KERNEL_REGISTRY: Dict[str, type] = {}
+
+
+def _as_xrange(xrange) -> np.ndarray:
+    """Normalise an x-range spec to a float [d, 2] array of (min, max)."""
+    arr = np.asarray(xrange, dtype=np.float64)
+    if arr.ndim == 1:
+        arr = arr[None, :]
+    if arr.shape[-1] != 2:
+        raise ValueError(f"xrange must be [d, 2], got {arr.shape}")
+    return arr
+
+
+def register_kernel(cls):
+    """Register a kernel class for deserialisation by its class name."""
+    KERNEL_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+class HyperparameterModule(nn.Module):
+    """A module whose hyperparameters are buffers named by
+    :meth:`param_names` (None until set): kernels and means. Buffers, not
+    parameters, because the posterior path needs no autograd."""
+
+    def param_names(self) -> Tuple[str, ...]:
+        return ()
+
+    def has_params(self) -> bool:
+        return all(getattr(self, name) is not None
+                   for name in self.param_names())
+
+    def set_params(self, params: Dict[str, torch.Tensor]):
+        """Set every hyperparameter from ``params`` (keys = param names)."""
+        names = set(self.param_names())
+        if set(params) != names:
+            raise KeyError(
+                f"{type(self).__name__} takes params {sorted(names)}, "
+                f"got {sorted(params)}"
+            )
+        for name, v in params.items():
+            setattr(self, name, torch.as_tensor(v))
+        return self
+
+
+class Kernel(HyperparameterModule):
+    """Abstract kernel-expression node.
+
+    ``_AST_FIELDS`` names the constructor arguments that define the node;
+    they, and nothing else, go into :meth:`to_dict`.
+    """
+
+    _AST_FIELDS: Tuple[str, ...] = ()
+
+    # --- evaluation ------------------------------------------------------
+    def gram(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def diag(self, x: torch.Tensor) -> torch.Tensor:
+        """Diagonal of ``gram(x, x)`` without building the matrix."""
+        raise NotImplementedError
+
+    def forward(self, x1, x2):
+        return self.gram(x1, x2)
+
+    # --- parameters ------------------------------------------------------
+    def init_params(self, xrange, n: int, generator=None, dtype=None) -> dict:
+        """Default (``generator=None``) or random initial hyperparameters,
+        as a dict of tensors; :meth:`set_params` installs them."""
+        raise NotImplementedError
+
+    def positivity(self) -> dict:
+        raise NotImplementedError
+
+    def bounds(self, xrange, n: int):
+        raise NotImplementedError
+
+    def x_rescale(self, params: dict, shift, scale) -> dict:
+        raise NotImplementedError
+
+    # --- serialisation ---------------------------------------------------
+    def to_dict(self) -> dict:
+        d = {"type": type(self).__name__}
+        for name in self._AST_FIELDS:
+            d[name] = getattr(self, name)
+        return d
+
+    def __str__(self) -> str:
+        return type(self).__name__.replace("Kernel", "")
+
+    def canonical_str(self) -> str:
+        """Canonical string form (``kernels/base.py:156`` of the JAX
+        package); a leaf is its name, with ``~s`` when scaled."""
+        name = type(self).__name__.replace("Kernel", "")
+        return name + ("~s" if getattr(self, "scaled", False) else "")
+
+
+def kernel_from_dict(d: dict) -> Kernel:
+    """Rebuild a kernel from :meth:`Kernel.to_dict` output (either
+    package's). Composite nodes are not ported yet."""
+    d = dict(d)
+    name = d.pop("type")
+    if name not in KERNEL_REGISTRY:
+        raise NotImplementedError(
+            f"kernel type {name!r} is not ported to the PyTorch package yet "
+            f"(ported: {sorted(KERNEL_REGISTRY)})"
+        )
+    return KERNEL_REGISTRY[name](**d)
+
+
+def _dt(dtype):
+    return dtype if dtype is not None else torch.get_default_dtype()

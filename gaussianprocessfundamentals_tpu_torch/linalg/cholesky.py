@@ -1,0 +1,69 @@
+"""Cholesky-based posterior for the dense route.
+
+Counterpart of ``gaussianprocessfundamentals_tpu/linalg/cholesky.py``
+(``:28-76, 166-185``): the dense posterior below the iterative threshold,
+and the small-n oracle on the card. ``torch.linalg.cholesky`` and
+``solve_triangular`` do the work. ``y`` is ``[..., n]``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+def add_diag(K: torch.Tensor, v) -> torch.Tensor:
+    """K + v·I along the trailing square dims (v scalar or [...])."""
+    v = torch.as_tensor(v, dtype=K.dtype, device=K.device)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    return K + v[..., None, None] * eye if v.ndim else K + v * eye
+
+
+def effective_jitter(K: torch.Tensor, jitter, eps_factor: float = 100.0):
+    """Dtype-aware jitter floor: max(jitter, eps_factor·eps·mean diag(K)).
+
+    A fixed 1e-8 assumes float64; a float32 Gram carries O(eps·‖K‖)
+    rounding, under which 1e-8 underflows and the factorisation fails."""
+    eps = torch.finfo(K.dtype).eps
+    mean_diag = torch.diagonal(K, dim1=-2, dim2=-1).mean(dim=-1).detach()
+    return torch.clamp_min(eps_factor * eps * mean_diag, jitter)
+
+
+def noised(K: torch.Tensor, noise, jitter: float) -> torch.Tensor:
+    """K + (σ² + jitter)·I, with the jitter floored by
+    :func:`effective_jitter`."""
+    noise = torch.as_tensor(noise, dtype=K.dtype, device=K.device)
+    return add_diag(K, noise + effective_jitter(K, jitter))
+
+
+class CholState(NamedTuple):
+    L: torch.Tensor  # lower Cholesky factor of K + (σ²+jitter)I
+    alpha: torch.Tensor  # (K+σ²I)⁻¹ y
+    logdet: torch.Tensor  # log|K+σ²I|
+
+
+def factor(K: torch.Tensor, y: torch.Tensor, noise, jitter: float) -> CholState:
+    L = torch.linalg.cholesky(noised(K, noise, jitter))
+    z = torch.linalg.solve_triangular(L, y[..., None], upper=False)
+    alpha = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
+    logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(dim=-1)
+    return CholState(L, alpha, logdet)
+
+
+def posterior_mean(state: CholState, K_s: torch.Tensor) -> torch.Tensor:
+    """μ* = K_sᵀα; K_s: [..., n_train, n_test] → [..., n_test]."""
+    return torch.einsum("...nt,...n->...t", K_s, state.alpha)
+
+
+def posterior_cov(state: CholState, K_s: torch.Tensor,
+                  K_ss: torch.Tensor) -> torch.Tensor:
+    """Σ* = K_ss − vᵀv with v = L⁻¹K_s."""
+    v = torch.linalg.solve_triangular(state.L, K_s, upper=False)
+    return K_ss - v.mT @ v
+
+
+def posterior_var(state: CholState, K_s: torch.Tensor,
+                  K_ss_diag: torch.Tensor) -> torch.Tensor:
+    """Marginal posterior variances without the full test covariance."""
+    v = torch.linalg.solve_triangular(state.L, K_s, upper=False)
+    return K_ss_diag - torch.sum(v * v, dim=-2)

@@ -1,0 +1,99 @@
+"""Modified batched conjugate gradients (mBCG).
+
+Counterpart of ``mbcg`` in ``gaussianprocessfundamentals_tpu/linalg/mbcg.py``
+(``:43-181``): one CG run against all columns of B at once, returning the
+per-column best-residual iterates and the α/β recurrence. The loop is a
+Python loop; with ``early_exit`` it reads one flag from the device per
+iteration to stop once every column is done.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+# consecutive >4×best residual excursions before a column counts as
+# exhausted: legitimately converging columns show 8-15+ in a row mid-run,
+# while at the float32 floor divergence persists indefinitely
+_DIVERGE_FACTOR = 4.0
+_EXHAUST_ITERS = 25
+
+
+class MBCGResult(NamedTuple):
+    solves: torch.Tensor  # [n, r] best-residual iterates of A⁻¹B
+    alphas: torch.Tensor  # [max_iters, r] CG step sizes
+    betas: torch.Tensor  # [max_iters, r] CG conjugacy coefficients
+    resid_norm: torch.Tensor  # [r] residual norms of the returned iterates
+    iters: int  # iterations executed
+
+
+def mbcg(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    B: torch.Tensor,
+    max_iters: int = 100,
+    tol: float = 1e-8,
+    precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    early_exit: bool = False,
+) -> MBCGResult:
+    """Batched CG on A X = B with B: [n, r]; ``matvec`` maps [n, r] → [n, r].
+
+    Finite-precision hardening, as in the JAX package: a column freezes when
+    pAp ≤ 0 or rᵀP⁻¹r ≤ 0 (its Krylov space is exhausted at this
+    precision), when its residual drops below ``tol``, or when it has
+    bounced above 4× its best residual for 25 consecutive iterations after
+    reaching 1% of ‖b‖. The returned solves are each column's best iterate.
+    """
+    n, r = B.shape
+    M = precond if precond is not None else (lambda v: v)
+
+    X = torch.zeros_like(B)
+    R = B
+    Z = M(R)
+    P = Z
+    rz = torch.sum(R * Z, dim=0)
+    b_norm = torch.linalg.norm(B, dim=0)
+    done = torch.zeros(r, dtype=torch.bool, device=B.device)
+    bX, bR = X, b_norm
+    stall = torch.zeros(r, dtype=torch.int32, device=B.device)
+    alphas = torch.zeros((max_iters, r), dtype=B.dtype, device=B.device)
+    betas = torch.zeros_like(alphas)
+    zero = torch.zeros((), dtype=B.dtype, device=B.device)
+    one = torch.ones((), dtype=B.dtype, device=B.device)
+
+    iters = 0
+    for i in range(max_iters):
+        if early_exit and bool(done.all()):
+            break
+        AP = matvec(P)
+        pAp = torch.sum(P * AP, dim=0)
+        bad = (pAp <= 0.0) | ~torch.isfinite(pAp)
+        # columns frozen before this step plus this step's pAp breakdown
+        done_alpha = done | bad
+        alpha = rz / torch.where(pAp > 0, pAp, one)
+        alpha = torch.where(done_alpha, zero, alpha)
+        X = X + alpha * P
+        R_new = R - alpha * AP
+        Z_new = M(R_new)
+        rz_new = torch.sum(R_new * Z_new, dim=0)
+        # rᵀP⁻¹r ≤ 0 is impossible for SPD P in exact arithmetic: the
+        # column sits at its attainable floor
+        done = done_alpha | (rz_new <= 0.0)
+        beta = rz_new / torch.where(rz > 0, rz, one)
+        beta = torch.where(done, zero, beta)
+        P = Z_new + beta * P
+        resid = torch.linalg.norm(R_new, dim=0)
+        # a column whose rz froze THIS step still took a valid step, so its
+        # iterate stays recordable: gate on done_alpha, not done
+        improved = (resid < bR) & torch.isfinite(resid) & ~done_alpha
+        bX = torch.where(improved[None, :], X, bX)
+        bR = torch.where(improved, resid, bR)
+        excursion = (bR < 0.01 * b_norm) & ~(resid <= _DIVERGE_FACTOR * bR)
+        stall = torch.where(excursion, stall + 1, torch.zeros_like(stall))
+        done = done | (resid < tol) | (stall >= _EXHAUST_ITERS)
+        done = done | ~torch.isfinite(resid)
+        R = torch.where(torch.isfinite(R_new), R_new, R)
+        Z, rz = Z_new, rz_new
+        alphas[i] = alpha
+        betas[i] = beta
+        iters = i + 1
+    return MBCGResult(bX, alphas, betas, bR, iters)

@@ -1,0 +1,193 @@
+"""Exact GP posterior: the functional router and the ``GaussianProcess`` facade.
+
+Counterpart of ``gaussianprocessfundamentals_tpu/models/exact.py``:
+``Posterior`` (``:33``), the ``posterior`` router (``:44``) with the same
+dense→iterative threshold, ``_posterior_dense`` (``:128``) and the
+``GaussianProcess`` facade (``:192``). This slice serves posteriors;
+fitting is the next slice's.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from gaussianprocessfundamentals_tpu_torch.config import DEFAULT_CONFIG, GPConfig
+from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
+from gaussianprocessfundamentals_tpu_torch.means.functions import (
+    MeanFunction,
+    ZeroMean,
+)
+from gaussianprocessfundamentals_tpu_torch.models.iterative import (
+    iterative_posterior_chunked,
+)
+
+# posterior() switches from the dense Cholesky to the matrix-free chunked
+# mBCG route at this many training rows: a dense f32 K is 1.6 GB at 20k and
+# 40 GB at 100k
+_AUTO_ITERATIVE_POST_N = 20_000
+
+
+class Posterior(NamedTuple):
+    """Posterior moments at the test inputs, including the mean function."""
+
+    mean: torch.Tensor  # [..., m]
+    var: torch.Tensor  # [..., m] marginal variances
+    sd: torch.Tensor  # [..., m]
+    mean_fn_mu: torch.Tensor  # mean-function contribution
+    posterior_mu: torch.Tensor  # GP residual posterior
+    # iterative route only: CG iterations and largest true relative
+    # residual per solve (see iterative_posterior_chunked's ``stats``)
+    solve_stats: Optional[dict] = None
+
+
+@torch.no_grad()
+def posterior(
+    kernel,
+    x_train: torch.Tensor,
+    y_train: torch.Tensor,
+    x_test: torch.Tensor,
+    noise,
+    jitter: float = DEFAULT_CONFIG.jitter,
+    mean: Optional[MeanFunction] = None,
+    full_cov: bool = False,
+    method: str = "auto",
+):
+    """Posterior moments: detrend y by the mean function, μ* = K_sᵀα and the
+    marginal variances, then add the mean back at the test inputs.
+
+    ``method``: "auto" (dense below ``_AUTO_ITERATIVE_POST_N`` training rows,
+    matrix-free chunked mBCG from there on), "dense" (the Cholesky route at
+    any n; the caller owns its O(n²) memory) or "iterative" (the matrix-free
+    route at any n). ``full_cov=True`` takes the dense route and returns
+    ``(Posterior, cov)``.
+    """
+    if method not in ("auto", "dense", "iterative"):
+        raise ValueError(
+            f"posterior(method={method!r}): one of 'auto', 'dense', 'iterative'"
+        )
+    mean = mean if mean is not None else ZeroMean(dim=x_train.shape[-1])
+    n = x_train.shape[-2]
+    want_iterative = method == "iterative" or (
+        method == "auto" and n >= _AUTO_ITERATIVE_POST_N
+    )
+    if method == "iterative" and (full_cov or x_train.ndim != 2):
+        raise ValueError(
+            "posterior(method='iterative') supports marginal variances on "
+            "unbatched inputs only (full_cov=False, x_train [n, d])"
+        )
+    if want_iterative and not full_cov and x_train.ndim == 2:
+        resid = y_train - mean.mean(x_train)
+        stats = {}
+        post_mu, var = iterative_posterior_chunked(
+            kernel, x_train, resid, x_test,
+            torch.as_tensor(noise, dtype=x_train.dtype,
+                            device=x_train.device) + jitter,
+            stats=stats,
+        )
+        mean_mu = mean.mean(x_test)
+        return Posterior(mean_mu + post_mu, var, torch.sqrt(var), mean_mu,
+                         post_mu, stats)
+    return _posterior_dense(kernel, x_train, y_train, x_test, noise, jitter,
+                            mean, full_cov)
+
+
+def _posterior_dense(kernel, x_train, y_train, x_test, noise, jitter, mean,
+                     full_cov):
+    resid = y_train - mean.mean(x_train)
+    K = kernel.gram(x_train, x_train)
+    state = chol.factor(K, resid, noise, jitter)
+    K_s = kernel.gram(x_train, x_test)
+    post_mu = chol.posterior_mean(state, K_s)
+    mean_mu = mean.mean(x_test)
+    if full_cov:
+        cov = chol.posterior_cov(state, K_s, kernel.gram(x_test, x_test))
+        var = torch.diagonal(cov, dim1=-2, dim2=-1)
+        sd = torch.sqrt(torch.clamp_min(var, 0.0))
+        return Posterior(mean_mu + post_mu, var, sd, mean_mu, post_mu), cov
+    var = torch.clamp_min(
+        chol.posterior_var(state, K_s, kernel.diag(x_test)), 0.0
+    )
+    return Posterior(mean_mu + post_mu, var, torch.sqrt(var), mean_mu, post_mu)
+
+
+def _check_matmul_precision(config: GPConfig) -> None:
+    """The CUDA path needs full-float32 matmuls: TF32 keeps about three
+    decimal digits, too few for CG and Cholesky."""
+    if (torch.get_float32_matmul_precision() != config.matmul_precision
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "float32 matmuls may use TF32: call torch.set_float32_matmul_"
+            f"precision({config.matmul_precision!r}) and set "
+            "torch.backends.cuda.matmul.allow_tf32 = False before serving "
+            "posteriors on a GPU"
+        )
+
+
+class GaussianProcess:
+    """Stateful facade: kernel + mean + noise + training data on one
+    ``device``, serving ``posterior`` and ``predict``.
+
+    The kernel and mean modules hold their hyperparameters (set them with
+    ``set_params`` or :func:`..utils.checkpoint.params_from_numpy`); unset
+    ones get the kernel's defaults for the training range, and an unset
+    ``noise`` defaults to the jitter.
+    """
+
+    def __init__(self, kernel, mean: Optional[MeanFunction] = None,
+                 config: GPConfig = DEFAULT_CONFIG, noise=None,
+                 device="cpu"):
+        self.device = torch.device(device)
+        self.kernel = kernel.to(self.device)
+        self.mean = (mean if mean is not None else ZeroMean()).to(self.device)
+        self.config = config
+        self.noise = noise
+        self.x_train = None
+        self.y_train = None
+
+    def set_data(self, x_train, y_train) -> "GaussianProcess":
+        self.x_train = torch.as_tensor(x_train, device=self.device)
+        self.y_train = torch.as_tensor(y_train, device=self.device,
+                                       dtype=self.x_train.dtype)
+        return self
+
+    def fit(self, *args, **kwargs):
+        raise NotImplementedError(
+            "fitting is not ported yet: the training slice (NLL + gradient "
+            "over the fused low-rank VJP kernel K2) is the next step of the "
+            "port; load fitted hyperparameters with utils.checkpoint.load"
+        )
+
+    def _ensure_params(self):
+        if self.x_train is None:
+            raise ValueError(
+                "no training data attached: call set_data(x, y) before "
+                "predict/posterior"
+            )
+        dt = self.x_train.dtype
+        for module in (self.kernel, self.mean):
+            if not module.has_params():
+                xr = torch.stack([self.x_train.min(dim=0).values,
+                                  self.x_train.max(dim=0).values], dim=-1)
+                module.set_params(module.init_params(
+                    xr.cpu().numpy(), self.x_train.shape[0], dtype=dt
+                ))
+            module.to(device=self.device, dtype=dt)
+        if self.noise is None:
+            self.noise = self.config.jitter
+
+    def posterior(self, x_test, full_cov: bool = False, method: str = "auto"):
+        self._ensure_params()
+        if self.device.type == "cuda":
+            _check_matmul_precision(self.config)
+        x_test = torch.as_tensor(x_test, device=self.device,
+                                 dtype=self.x_train.dtype)
+        return posterior(
+            self.kernel, self.x_train, self.y_train, x_test, self.noise,
+            self.config.jitter, self.mean, full_cov=full_cov, method=method,
+        )
+
+    def predict(self, x_test):
+        """(full μ, mean-function μ, posterior μ), the reference's triple."""
+        post = self.posterior(x_test)
+        return post.mean, post.mean_fn_mu, post.posterior_mu

@@ -1,0 +1,61 @@
+"""The PyTorch package stands alone: importing it and serving a posterior
+loads no JAX, and importing it needs no CUDA, nvcc or triton."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import importlib, json, pkgutil, sys
+import numpy as np
+import torch
+import gaussianprocessfundamentals_tpu_torch as gpt
+
+# import every module of the package, the CUDA build and kernel wrappers too
+for mod in pkgutil.walk_packages(gpt.__path__, gpt.__name__ + "."):
+    importlib.import_module(mod.name)
+
+rng = np.random.default_rng(0)
+x = np.sort(rng.uniform(0, 1, (300, 1)), 0).astype(np.float32)
+y = np.sin(8 * x[:, 0]) + 0.1 * rng.standard_normal(300).astype(np.float32)
+k = gpt.SquaredExponentialKernel()
+gpt.params_from_numpy(k, {"lengthscale": np.float32(0.1)})
+gp = gpt.GaussianProcess(k, noise=1e-2, device="cpu").set_data(x, y)
+post = gp.posterior(np.linspace(0, 1, 20, dtype=np.float32)[:, None],
+                    method="iterative")
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules
+                        if m.startswith("gaussianprocessfundamentals_tpu.")
+                        or m == "gaussianprocessfundamentals_tpu"),
+    "triton": "triton" in sys.modules,
+    "finite": bool(torch.isfinite(post.mean).all() and torch.isfinite(post.var).all()),
+}))
+"""
+
+
+def test_port_imports_and_serves_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"jax": [], "reference": [], "triton": False, "finite": True}
+
+
+def test_no_module_of_the_port_imports_jax():
+    """Also the imports inside functions, which the run above may not reach."""
+    paths = sorted((ROOT / "gaussianprocessfundamentals_tpu_torch").rglob("*.py"))
+    assert paths
+    for path in paths:
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            if stripped.startswith(("import ", "from ")):
+                assert "jax" not in stripped.split()[1], (path, line)
