@@ -1,24 +1,29 @@
 """gaussianprocessfundamentals_tpu_torch — the PyTorch/CUDA port of the GP engine.
 
-The first slice of the port: serving exact-GP posteriors at any n for SE
-and Matérn kernels. Below 20k training rows the posterior is a dense
-Cholesky; from there on it is the matrix-free preconditioned mBCG route,
-whose Gram·V products run in a hand-written CUDA kernel on the GPU
-(``ops/cuda_gram.py``, ``csrc/gram_matvec.cu``) and in plain PyTorch on the
-CPU. Hyperparameters come from a checkpoint of the JAX package
-(``utils.checkpoint.load``) or are set on the kernel module.
+Exact GPs with SE and Matérn kernels and constant/linear means, fitted and
+served at any n. Below 8k training rows ``fit`` runs L-BFGS on the dense
+Cholesky NLL; from there on Adam over the matrix-free iterative NLL (mBCG
+solves, SLQ log-determinant, a low-rank gradient cotangent). Posteriors are
+dense below 20k rows and matrix-free chunked mBCG from there on. Above 40k
+rows K is never formed: its products run in hand-written CUDA kernels on the
+GPU, Gram·V in ``csrc/gram_matvec.cu`` and the gradient's low-rank
+contraction in ``csrc/lowrank_vjp.cu``, and in plain PyTorch on the CPU.
+Checkpoints are the JAX package's format, both ways (``save``/``load``).
 
 Quick start::
 
     import torch
     import gaussianprocessfundamentals_tpu_torch as gpt
     torch.set_float32_matmul_precision("highest")
-    k = gpt.SquaredExponentialKernel()
-    gpt.params_from_numpy(k, {"lengthscale": np.float32(0.1)})
-    gp = gpt.GaussianProcess(k, noise=1e-2, device="cuda").set_data(x, y)
+    gp = gpt.GaussianProcess(gpt.SquaredExponentialKernel(scaled=True),
+                             gpt.ConstantMean() + gpt.LinearMean(dim=1))
+    gp.fit(x, y, method="auto", optimize_noise=True, noise=1e-2)
     post = gp.posterior(x_test)
+
+The facade runs on the GPU unless given ``device="cpu"``.
 """
 from gaussianprocessfundamentals_tpu_torch.config import DEFAULT_CONFIG, GPConfig
+from gaussianprocessfundamentals_tpu_torch.fit.fit import FitResult, fit
 from gaussianprocessfundamentals_tpu_torch.kernels.base import (
     Kernel,
     kernel_from_dict,
@@ -30,7 +35,10 @@ from gaussianprocessfundamentals_tpu_torch.kernels.leaves import (
     SquaredExponentialKernel,
 )
 from gaussianprocessfundamentals_tpu_torch.means.functions import (
+    ConstantMean,
+    LinearMean,
     MeanFunction,
+    MeanSum,
     ZeroMean,
     mean_from_dict,
 )
@@ -40,6 +48,8 @@ from gaussianprocessfundamentals_tpu_torch.models.exact import (
     posterior,
 )
 from gaussianprocessfundamentals_tpu_torch.models.iterative import (
+    fit_iterative,
+    iterative_nll_and_grad,
     iterative_posterior,
     iterative_posterior_chunked,
     iterative_posterior_mean,
@@ -47,6 +57,8 @@ from gaussianprocessfundamentals_tpu_torch.models.iterative import (
 from gaussianprocessfundamentals_tpu_torch.utils.checkpoint import (
     load,
     params_from_numpy,
+    save,
+    tree_from_numpy,
 )
 
 __version__ = "0.1.0"

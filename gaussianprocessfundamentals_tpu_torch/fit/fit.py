@@ -1,0 +1,360 @@
+"""Hyperparameter fitting: Adam and L-BFGS over the NLL, with fit() routing.
+
+Counterpart of ``gaussianprocessfundamentals_tpu/fit/fit.py``: ``FitResult``
+(``:36``), ``make_nll`` (``:56``), ``bounds_projection`` (``:240``),
+``init_uparams`` (``:267``), ``adam_run`` (``:292``), ``lbfgs_run``
+(``:315``), ``_fit_iterative_routed`` (``:471``) and ``fit`` (``:556``) with
+its routing: the dense Cholesky NLL below ``_AUTO_ITERATIVE_N`` rows, the
+matrix-free iterative NLL (:func:`..models.iterative.fit_iterative`) from
+there on or whenever the dense working set would not fit
+``config.dense_hbm_budget``, and ×10 jitter escalation when the dense NLL
+comes out non-finite.
+
+The optimisers work on a tree of unconstrained leaf tensors
+(``{"kernel": …, "mean": …, "log_noise": …}``) and install the constrained
+values in the kernel and mean modules for every evaluation; the fitted
+values stay installed when ``fit`` returns. ``adam_run`` is
+``torch.optim.Adam``, the update rule of ``optax.adam``; ``lbfgs_run`` is
+``torch.optim.LBFGS`` with a strong-Wolfe line search, which reaches the
+JAX package's optimum by another path (its zoom line search differs step
+by step). Restarts run one after another.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from gaussianprocessfundamentals_tpu_torch.config import DEFAULT_CONFIG, GPConfig
+from gaussianprocessfundamentals_tpu_torch.fit.transforms import (
+    assign_leaves,
+    clip_to_bounds,
+    constrain,
+    leaf_copy,
+    unconstrain,
+)
+from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
+from gaussianprocessfundamentals_tpu_torch.means.functions import (
+    MeanFunction,
+    ZeroMean,
+)
+from gaussianprocessfundamentals_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+)
+
+_AUTO_ITERATIVE_N = 8000  # fit(method="auto") dense→iterative crossover
+
+_NOT_PORTED = "is not ported to the PyTorch package yet (ROADMAP.md M7)"
+
+
+@dataclasses.dataclass
+class FitResult:
+    """Fitted parameters (trees of tensors), the noise, and the NLL before
+    and after the fit."""
+
+    kernel_params: Any
+    mean_params: Any
+    noise: torch.Tensor
+    nll_pre: float
+    nll_post: float
+    history: Optional[torch.Tensor] = None
+    restart_losses: Optional[torch.Tensor] = None
+    # iterative route: {"frozen_frac": share of steps the guard skipped}
+    diagnostics: Optional[dict] = None
+
+
+def _install(kernel, mean, u, optimize_noise, fixed_noise, like):
+    """Install the constrained values of ``u`` in the modules; returns the
+    noise. The installed tensors keep their graph to ``u``'s leaves."""
+    kernel.set_params(constrain(kernel.positivity(), u["kernel"]))
+    mean.set_params(constrain(mean.positivity(), u["mean"]))
+    if optimize_noise:
+        return torch.exp(u["log_noise"])
+    return torch.as_tensor(fixed_noise, dtype=like.dtype, device=like.device)
+
+
+def make_nll(kernel, mean: MeanFunction, x, y,
+             config: GPConfig = DEFAULT_CONFIG, optimize_noise: bool = False,
+             fixed_noise: float = 0.0) -> Callable:
+    """``nll(u) -> scalar`` over the unconstrained tree ``u``: the dense
+    Cholesky NLL of y − m(x) under K + (σ² + jitter)·I. Batched
+    (instance-stacked) problems average, as the JAX package's do."""
+
+    def nll_fn(u):
+        noise = _install(kernel, mean, u, optimize_noise, fixed_noise, x)
+        resid = y - mean.mean(x)
+        out = chol.nll(kernel.gram(x, x), resid, noise, config.jitter)
+        return out.mean() if out.ndim else out
+
+    return nll_fn
+
+
+def bounds_projection(kernel, xrange, n: int) -> Callable:
+    """A projection of the unconstrained tree into the kernel's box bounds
+    (clipped in log space for positive parameters). Mean and noise entries
+    are untouched, as in the JAX package."""
+    lo, hi = kernel.bounds(xrange, n)
+    kpos = kernel.positivity()
+
+    def to_u(b, p):
+        b = np.asarray(b, np.float64)
+        with np.errstate(divide="ignore"):
+            return np.log(b) if p else b
+
+    lo_u = {k: to_u(lo[k], kpos[k]) for k in kpos}
+    hi_u = {k: to_u(hi[k], kpos[k]) for k in kpos}
+
+    def project(u):
+        return {**u, "kernel": clip_to_bounds(u["kernel"], lo_u, hi_u)}
+
+    return project
+
+
+def init_uparams(kernel, mean: MeanFunction, xrange, n: int, generator=None,
+                 dtype=None, optimize_noise: bool = False,
+                 init_noise: float = 1e-4, device=None):
+    """The unconstrained starting tree: the modules' defaults, or random
+    points inside the bounds drawn from ``generator``."""
+    to = lambda t: t.to(device)  # noqa: E731
+    kp = tree_map(to, kernel.init_params(xrange, n, generator, dtype))
+    mp = tree_map(to, mean.init_params(xrange, n, generator, dtype))
+    u = {"kernel": unconstrain(kernel.positivity(), kp),
+         "mean": unconstrain(mean.positivity(), mp)}
+    if optimize_noise:
+        u["log_noise"] = torch.log(torch.as_tensor(init_noise, dtype=dtype,
+                                                   device=device))
+    return u
+
+
+def adam_run(nll_fn, u0, steps: int = 300, lr: float = 0.05,
+             project_fn=None):
+    """Adam; returns (final unconstrained tree, per-step loss history).
+    ``project_fn`` (e.g. :func:`bounds_projection`) is applied after every
+    update: projected gradient descent over the box bounds."""
+    u = leaf_copy(u0, project_fn)
+    opt = torch.optim.Adam(tree_leaves(u), lr=lr)
+    hist = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = nll_fn(u)
+        loss.backward()
+        opt.step()
+        if project_fn is not None:
+            assign_leaves(u, project_fn(u))
+        hist.append(loss.detach())
+    return tree_map(torch.Tensor.detach, u), torch.stack(hist)
+
+
+def lbfgs_run(nll_fn, u0, max_iters: int = 200, tol: float = 1e-8,
+              project_fn=None):
+    """L-BFGS (history 10, strong-Wolfe line search), one iteration per
+    ``step`` so the projection and the guards act between iterations.
+
+    Stops after ``max_iters`` iterations, when the gradient's 2-norm at
+    the current point is ≤ ``tol``, when an iteration moves nothing, or
+    when it makes the parameters non-finite (that iteration is undone).
+    Returns (final unconstrained tree, None)."""
+    u = leaf_copy(u0, project_fn)
+    leaves = tree_leaves(u)
+    # max_eval bounds the line search too (max_ls = max_eval − 1): torch's
+    # default for max_iter=1 is 1, which would leave it no trial steps
+    opt = torch.optim.LBFGS(leaves, lr=1.0, max_iter=1, max_eval=26,
+                            history_size=10, tolerance_grad=0.0,
+                            line_search_fn="strong_wolfe")
+    evals = []
+
+    def closure():
+        opt.zero_grad()
+        loss = nll_fn(u)
+        loss.backward()
+        gnorm = torch.sqrt(sum(torch.sum(p.grad * p.grad) for p in leaves
+                               if p.grad is not None))
+        evals.append((float(loss.detach()), float(gnorm)))
+        return loss
+
+    for _ in range(max_iters):
+        before = [p.detach().clone() for p in leaves]
+        evals.clear()
+        opt.step(closure)
+        loss0, gnorm0 = evals[0]  # at the point this iteration started
+        if project_fn is not None:
+            assign_leaves(u, project_fn(u))
+        if not all(bool(torch.isfinite(p).all()) for p in leaves):
+            assign_leaves(u, before)
+            break
+        moved = any(bool((p != b).any()) for p, b in zip(leaves, before))
+        if not np.isfinite(loss0) or gnorm0 <= tol or not moved:
+            break
+    return tree_map(torch.Tensor.detach, u), None
+
+
+def iterative_fit_result(out, with_mean: bool) -> FitResult:
+    """The FitResult of :func:`..models.iterative.fit_iterative`'s return
+    with diagnostics; nll_pre and nll_post are the stochastic estimates of
+    the first and last steps."""
+    if with_mean:
+        kp, mp, noise, hist, diag = out
+    else:
+        (kp, noise, hist, diag), mp = out, {}
+    return FitResult(kp, mp, noise, nll_pre=float(hist[0]),
+                     nll_post=float(hist[-1]), history=hist, diagnostics=diag)
+
+
+def _fit_iterative_routed(kernel, x, y, generator, steps, lr, restarts,
+                          optimize_noise, noise, xrange,
+                          iterative_kwargs=None, mean=None,
+                          enforce_bounds: bool = False) -> FitResult:
+    """fit()'s large-n route: Adam over the mBCG + SLQ iterative NLL
+    (:func:`..models.iterative.fit_iterative`), with the median-residual
+    step guard at 0.5 unless ``iterative_kwargs`` says otherwise."""
+    from gaussianprocessfundamentals_tpu_torch.models.iterative import (
+        fit_iterative,
+    )
+
+    kw = dict(resid_guard=0.5)
+    kw.update(iterative_kwargs or {})
+    # clamp the noise only where it is an optimiser start; a fixed noise is
+    # solved as given (fit() keeps fixed noise < 1e-6 off this route)
+    init_noise = max(float(noise), 1e-6) if optimize_noise else float(noise)
+    if type(mean) is ZeroMean:
+        mean = None  # contributes nothing; keep the lean path
+    out = fit_iterative(
+        kernel, x, y, generator, steps=steps, lr=lr, restarts=restarts,
+        optimize_noise=optimize_noise, init_noise=init_noise, xrange=xrange,
+        mean=mean, enforce_bounds=enforce_bounds, return_diagnostics=True,
+        **kw,
+    )
+    return iterative_fit_result(out, mean is not None)
+
+
+def fit(
+    kernel, x, y, mean: Optional[MeanFunction] = None,
+    config: GPConfig = DEFAULT_CONFIG, method: str = "lbfgs",
+    restarts: int = 0, generator=None, optimize_noise: bool = False,
+    noise: float = 1e-4, steps: int = 300, lr: float = 0.05, xrange=None,
+    enforce_bounds: bool = False, iterative_kwargs: Optional[dict] = None,
+    gram_fn=None, kfold: int = 0, approximation: Optional[str] = None,
+    n_inducing: Optional[int] = None, optimize_inducing: bool = False,
+) -> FitResult:
+    """Fit kernel and mean hyperparameters by minimising the NLL.
+
+    ``method``: "lbfgs" or "adam" on the dense NLL, or "auto": the dense
+    L-BFGS route below ``_AUTO_ITERATIVE_N`` rows and the matrix-free
+    iterative Adam route (``steps``, ``lr``, ``iterative_kwargs``) from
+    there on. Either dense method switches to the iterative route, with a
+    warning, when the dense working set ~3·n²·itemsize exceeds
+    ``config.dense_hbm_budget``. ``restarts > 0`` adds that many random
+    starts inside the bounds, drawn from ``generator`` (required on the
+    dense route), and keeps the best final NLL. A non-finite dense result
+    is retried with the jitter ×10, up to ``config.max_jitter_retries``
+    times. ``enforce_bounds`` projects the kernel hyperparameters into
+    ``kernel.bounds(xrange, n)`` after every step.
+
+    Not ported yet (``NotImplementedError``): ``approximation``,
+    ``n_inducing``, ``optimize_inducing``, ``kfold``, ``gram_fn``, the
+    scipy methods and batched inputs.
+    """
+    unported = [
+        name for name, given in (
+            ("approximation", approximation is not None),
+            ("n_inducing", n_inducing is not None),
+            ("optimize_inducing", optimize_inducing),
+            ("kfold", kfold > 1),
+            ("gram_fn", gram_fn is not None),
+            (f"method={method!r}", method.startswith("scipy")),
+            ("batched (instance-stacked) input", x.ndim != 2),
+        ) if given
+    ]
+    if unported:
+        raise NotImplementedError(f"fit(): {', '.join(unported)} {_NOT_PORTED}")
+    if method not in ("auto", "lbfgs", "adam"):
+        raise ValueError(f"fit(method={method!r}): one of 'auto', 'lbfgs', 'adam'")
+    mean = mean if mean is not None else ZeroMean(dim=x.shape[-1])
+    if xrange is None:
+        xrange = torch.stack([x.min(dim=0).values, x.max(dim=0).values],
+                             dim=-1).cpu().numpy()
+    n = x.shape[-2]
+    dtype = x.dtype
+    # the iterative route would have to clamp a fixed noise this small,
+    # silently solving another model
+    iterative_ok = optimize_noise or float(noise) >= 1e-6
+    dense_bytes = 3 * n * n * x.element_size()
+    dense_feasible = dense_bytes <= config.dense_hbm_budget
+    route_iterative = False
+    if method == "auto":
+        route_iterative = iterative_ok and (
+            n >= _AUTO_ITERATIVE_N or not dense_feasible)
+        if not route_iterative:
+            method = "lbfgs"
+    if not dense_feasible and not route_iterative:
+        if not iterative_ok:
+            raise ValueError(
+                f"fit(method={method!r}) at n={n} needs a dense working set "
+                f"of ~{dense_bytes / 1e9:.1f} GB (> budget "
+                f"{config.dense_hbm_budget / 1e9:.1f} GB, "
+                "config.dense_hbm_budget), and a fixed noise < 1e-6 keeps it "
+                "off the matrix-free iterative route. Reduce n, optimise the "
+                "noise, or raise config.dense_hbm_budget if the memory "
+                "truly exists."
+            )
+        warnings.warn(
+            f"fit(method={method!r}) at n={n} needs a dense working set of "
+            f"~{dense_bytes / 1e9:.1f} GB (> budget "
+            f"{config.dense_hbm_budget / 1e9:.1f} GB, "
+            "config.dense_hbm_budget); routing to the matrix-free iterative "
+            "fitter instead.",
+            stacklevel=2,
+        )
+        route_iterative = True
+    if route_iterative:
+        return _fit_iterative_routed(
+            kernel, x, y, generator, steps, lr, restarts,
+            optimize_noise, noise, xrange, iterative_kwargs, mean=mean,
+            enforce_bounds=enforce_bounds,
+        )
+    if restarts > 0 and generator is None:
+        raise ValueError("fit(restarts>0) on the dense route needs a generator")
+    project = bounds_projection(kernel, xrange, n) if enforce_bounds else None
+    start = dict(dtype=dtype, optimize_noise=optimize_noise,
+                 init_noise=max(noise, 1e-6), device=x.device)
+    inits = [init_uparams(kernel, mean, xrange, n, None, **start)]
+    inits += [init_uparams(kernel, mean, xrange, n, generator, **start)
+              for _ in range(restarts)]
+
+    def attempt(cfg: GPConfig) -> FitResult:
+        nll_fn = make_nll(kernel, mean, x, y, cfg, optimize_noise, noise)
+
+        def run(u0):
+            if method == "adam":
+                return adam_run(nll_fn, u0, steps, lr, project)
+            return lbfgs_run(nll_fn, u0, project_fn=project)
+
+        runs = [run(u0) for u0 in inits]
+        with torch.no_grad():
+            losses = torch.stack([nll_fn(u).detach() for u, _ in runs])
+        safe = torch.where(torch.isfinite(losses), losses,
+                           torch.full_like(losses, float("inf")))
+        best = int(torch.argmin(safe))
+        u, hist = runs[best]
+        with torch.no_grad():
+            nll_pre = float(nll_fn(inits[0]))
+            nll_post = float(nll_fn(u))
+            fitted_noise = _install(kernel, mean, u, optimize_noise, noise, x)
+        return FitResult(
+            constrain(kernel.positivity(), u["kernel"]),
+            constrain(mean.positivity(), u["mean"]), fitted_noise,
+            nll_pre, nll_post, hist,
+            losses if restarts > 0 else None,
+        )
+
+    cfg = config
+    for _ in range(config.max_jitter_retries):
+        res = attempt(cfg)
+        if np.isfinite(res.nll_post):
+            return res
+        cfg = dataclasses.replace(cfg, jitter=cfg.jitter * 10.0)
+    return res

@@ -11,11 +11,14 @@ The AST serialises to the same JSON as the JAX package (``to_dict`` /
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_map
 
 KERNEL_REGISTRY: Dict[str, type] = {}
 
@@ -38,8 +41,14 @@ def register_kernel(cls):
 
 class HyperparameterModule(nn.Module):
     """A module whose hyperparameters are buffers named by
-    :meth:`param_names` (None until set): kernels and means. Buffers, not
-    parameters, because the posterior path needs no autograd."""
+    :meth:`param_names` (None until set): kernels and means.
+
+    Buffers, not ``nn.Parameter``s: a fit optimises a dict of unconstrained
+    leaf tensors and installs the constrained values with
+    :meth:`set_params` each step. An installed value keeps its autograd
+    graph, so gradients reach the leaves through ``gram``, ``diag`` and
+    ``mean``; :meth:`differentiable` installs leaves of its own where the
+    gradient with respect to the natural parameters is wanted."""
 
     def param_names(self) -> Tuple[str, ...]:
         return ()
@@ -47,6 +56,10 @@ class HyperparameterModule(nn.Module):
     def has_params(self) -> bool:
         return all(getattr(self, name) is not None
                    for name in self.param_names())
+
+    def get_params(self) -> dict:
+        """The hyperparameters as the JAX package's params tree."""
+        return {name: getattr(self, name) for name in self.param_names()}
 
     def set_params(self, params: Dict[str, torch.Tensor]):
         """Set every hyperparameter from ``params`` (keys = param names)."""
@@ -59,6 +72,19 @@ class HyperparameterModule(nn.Module):
         for name, v in params.items():
             setattr(self, name, torch.as_tensor(v))
         return self
+
+    @contextlib.contextmanager
+    def differentiable(self):
+        """Install detached leaf copies of the hyperparameters that require
+        grad, and yield them as a params tree; the values installed before
+        come back on exit."""
+        before = self.get_params()
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), before)
+        self.set_params(leaves)
+        try:
+            yield leaves
+        finally:
+            self.set_params(before)
 
 
 class Kernel(HyperparameterModule):

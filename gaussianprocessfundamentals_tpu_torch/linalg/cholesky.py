@@ -1,15 +1,17 @@
-"""Cholesky-based posterior for the dense route.
+"""Cholesky-based log marginal likelihood and posterior for the dense route.
 
 Counterpart of ``gaussianprocessfundamentals_tpu/linalg/cholesky.py``
-(``:28-76, 166-185``): the dense posterior below the iterative threshold,
-and the small-n oracle on the card. ``torch.linalg.cholesky`` and
-``solve_triangular`` do the work. ``y`` is ``[..., n]``.
+(``:28-185``): the dense MLL with its closed-form gradient, the dense
+posterior below the iterative threshold, and the small-n oracle on the
+card. ``torch.linalg`` does the work. ``y`` is ``[..., n]``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+LOG_2PI = 1.8378770664093453
 
 
 def add_diag(K: torch.Tensor, v) -> torch.Tensor:
@@ -48,6 +50,55 @@ def factor(K: torch.Tensor, y: torch.Tensor, noise, jitter: float) -> CholState:
     alpha = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(dim=-1)
     return CholState(L, alpha, logdet)
+
+
+def mll_from_state(state: CholState, y: torch.Tensor) -> torch.Tensor:
+    """Log marginal likelihood −½yᵀα − ½log|K| − (n/2)·log 2π."""
+    n = y.shape[-1]
+    return (-0.5 * torch.sum(y * state.alpha, dim=-1) - 0.5 * state.logdet
+            - 0.5 * n * LOG_2PI)
+
+
+class _MLLCore(torch.autograd.Function):
+    """MLL of N(y | 0, Kₙ) with the closed-form backward
+
+        ∂mll/∂Kₙ = ½(ααᵀ − Kₙ⁻¹),   ∂mll/∂y = −α,
+
+    which costs one ``cholesky_inverse`` instead of differentiating through
+    the factorisation. A factorisation that fails (Kₙ not positive definite
+    at this precision) gives NaN, as the JAX package's does, so ``fit`` can
+    escalate the jitter; it is checked on the device, without a host read.
+    """
+
+    @staticmethod
+    def forward(ctx, Kn, y):
+        L, info = torch.linalg.cholesky_ex(Kn)
+        alpha = torch.cholesky_solve(y[..., None], L)[..., 0]
+        logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+        n = y.shape[-1]
+        out = -0.5 * torch.sum(y * alpha, dim=-1) - 0.5 * logdet - 0.5 * n * LOG_2PI
+        out = torch.where(info == 0, out, torch.full_like(out, float("nan")))
+        ctx.save_for_backward(L, alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        L, alpha = ctx.saved_tensors
+        Kn_inv = torch.cholesky_inverse(L)
+        aa = alpha[..., :, None] * alpha[..., None, :]
+        dKn = 0.5 * (aa - Kn_inv) * g[..., None, None]
+        dy = -alpha * g[..., None]
+        return dKn, dy
+
+
+def mll(K: torch.Tensor, y: torch.Tensor, noise, jitter: float) -> torch.Tensor:
+    """Log marginal likelihood of y under K + (σ² + jitter)·I."""
+    return _MLLCore.apply(noised(K, noise, jitter), y)
+
+
+def nll(K: torch.Tensor, y: torch.Tensor, noise, jitter: float) -> torch.Tensor:
+    """Negative log marginal likelihood, the fitting objective."""
+    return -mll(K, y, noise, jitter)
 
 
 def posterior_mean(state: CholState, K_s: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,18 @@
-"""Modified batched conjugate gradients (mBCG).
+"""Modified batched conjugate gradients (mBCG) and the SLQ log-determinant.
 
-Counterpart of ``mbcg`` in ``gaussianprocessfundamentals_tpu/linalg/mbcg.py``
-(``:43-181``): one CG run against all columns of B at once, returning the
-per-column best-residual iterates and the α/β recurrence. The loop is a
-Python loop; with ``early_exit`` it reads one flag from the device per
-iteration to stop once every column is done.
+Counterpart of ``gaussianprocessfundamentals_tpu/linalg/mbcg.py``: ``mbcg``
+(``:43-181``), one CG run against all columns of B at once, returning the
+per-column best-residual iterates and the α/β recurrence;
+``lanczos_tridiag_from_cg`` (``:184``) and the stochastic Lanczos
+quadrature log-determinant. The CG loop is a Python loop; with
+``early_exit`` it reads one flag from the device per iteration to stop once
+every column is done.
+
+One :func:`slq_logdet` replaces the JAX package's three forms (``:210``,
+``slq_logdet_device`` ``:405`` with its Jacobi eigensolver, and
+``slq_logdet_host`` ``:425``): a batched float64 ``torch.linalg.eigh`` of
+the [r, t, t] tridiagonals on the tensors' own device. The Jacobi solver
+and the host round trip only kept a remote TPU's program small.
 """
 from __future__ import annotations
 
@@ -97,3 +105,41 @@ def mbcg(
         betas[i] = beta
         iters = i + 1
     return MBCGResult(bX, alphas, betas, bR, iters)
+
+
+def lanczos_tridiag_from_cg(alphas: torch.Tensor, betas: torch.Tensor):
+    """CG coefficients → Lanczos tridiagonal (diag [t, r], offdiag
+    [t-1, r]) per column:
+
+        T_jj = 1/α_j + β_{j-1}/α_{j-1},   T_{j,j+1} = √β_j / α_j.
+
+    Columns that converged early (α = 0 tail) or whose coefficients went
+    non-finite get identity rows, so their estimate is biased, not NaN.
+    """
+    one = torch.ones((), dtype=alphas.dtype, device=alphas.device)
+    safe_a = torch.where(alphas != 0, alphas, one)
+    prev_ba = torch.cat([torch.zeros_like(alphas[:1]),
+                         betas[:-1] / safe_a[:-1]], dim=0)
+    diag = 1.0 / safe_a + prev_ba
+    off = torch.sqrt(torch.clamp_min(betas, 0.0)) / safe_a
+    dead = (alphas == 0) | ~torch.isfinite(alphas) | ~torch.isfinite(betas)
+    diag = torch.where(dead | ~torch.isfinite(diag), one, diag)
+    off = torch.where(dead | ~torch.isfinite(off), torch.zeros_like(off), off)
+    return diag, off[:-1]
+
+
+def slq_logdet(alphas: torch.Tensor, betas: torch.Tensor,
+               z_weights: torch.Tensor) -> torch.Tensor:
+    """Stochastic Lanczos quadrature estimate of log|A| from a CG run on
+    probe columns: mean over columns of ‖z‖²_w · e₁ᵀ log(T) e₁, where
+    ``z_weights`` are the probes' e₁ weights (zᵀz, or zᵀP⁻¹z for
+    preconditioned probes). Returns a float64 scalar on the tensors'
+    device."""
+    diag, off = lanczos_tridiag_from_cg(alphas.double(), betas.double())
+    T = (torch.diag_embed(diag.T) + torch.diag_embed(off.T, offset=1)
+         + torch.diag_embed(off.T, offset=-1))  # [r, t, t]
+    w, V = torch.linalg.eigh(T)
+    w = torch.clamp_min(w, 1e-300)
+    tau = V[:, 0, :] ** 2
+    vals = z_weights.double() * torch.sum(tau * torch.log(w), dim=-1)
+    return vals.mean()

@@ -3,8 +3,9 @@
 Counterpart of ``gaussianprocessfundamentals_tpu/models/exact.py``:
 ``Posterior`` (``:33``), the ``posterior`` router (``:44``) with the same
 dense→iterative threshold, ``_posterior_dense`` (``:128``) and the
-``GaussianProcess`` facade (``:192``). This slice serves posteriors;
-fitting is the next slice's.
+``GaussianProcess`` facade (``:192``) with ``fit`` (``:218``, the routed
+:func:`..fit.fit.fit` or ``method="iterative"``) and
+``log_marginal_likelihood`` (``:314``). Sampling is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,12 +14,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from gaussianprocessfundamentals_tpu_torch.config import DEFAULT_CONFIG, GPConfig
+from gaussianprocessfundamentals_tpu_torch.fit.fit import (
+    FitResult,
+    iterative_fit_result,
+)
+from gaussianprocessfundamentals_tpu_torch.fit.fit import fit as _fit
 from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
 from gaussianprocessfundamentals_tpu_torch.means.functions import (
     MeanFunction,
     ZeroMean,
 )
 from gaussianprocessfundamentals_tpu_torch.models.iterative import (
+    fit_iterative,
     iterative_posterior_chunked,
 )
 
@@ -119,24 +126,26 @@ def _check_matmul_precision(config: GPConfig) -> None:
         raise RuntimeError(
             "float32 matmuls may use TF32: call torch.set_float32_matmul_"
             f"precision({config.matmul_precision!r}) and set "
-            "torch.backends.cuda.matmul.allow_tf32 = False before serving "
-            "posteriors on a GPU"
+            "torch.backends.cuda.matmul.allow_tf32 = False before fitting "
+            "or serving posteriors on a GPU"
         )
 
 
 class GaussianProcess:
     """Stateful facade: kernel + mean + noise + training data on one
-    ``device``, serving ``posterior`` and ``predict``.
+    ``device`` (the GPU unless the caller asks for another), with ``fit``,
+    ``posterior``, ``predict`` and ``log_marginal_likelihood``.
 
-    The kernel and mean modules hold their hyperparameters (set them with
-    ``set_params`` or :func:`..utils.checkpoint.params_from_numpy`); unset
-    ones get the kernel's defaults for the training range, and an unset
-    ``noise`` defaults to the jitter.
+    The kernel and mean modules hold their hyperparameters (``fit`` installs
+    them; or set them with ``set_params`` or
+    :func:`..utils.checkpoint.params_from_numpy`); unset ones get the
+    kernel's defaults for the training range, and an unset ``noise``
+    defaults to the jitter.
     """
 
     def __init__(self, kernel, mean: Optional[MeanFunction] = None,
                  config: GPConfig = DEFAULT_CONFIG, noise=None,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         self.kernel = kernel.to(self.device)
         self.mean = (mean if mean is not None else ZeroMean()).to(self.device)
@@ -151,12 +160,43 @@ class GaussianProcess:
                                        dtype=self.x_train.dtype)
         return self
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fitting is not ported yet: the training slice (NLL + gradient "
-            "over the fused low-rank VJP kernel K2) is the next step of the "
-            "port; load fitted hyperparameters with utils.checkpoint.load"
-        )
+    def fit(self, x_train=None, y_train=None, **kwargs) -> FitResult:
+        """Fit the hyperparameters to the training data (given here or by
+        ``set_data``) and install them. ``method="iterative"`` runs
+        :func:`..models.iterative.fit_iterative` with ``kwargs`` (its
+        ``generator`` draws the probes); any other call is
+        :func:`..fit.fit.fit` with ``kwargs``, ``method="auto"`` routing
+        between the dense and the iterative NLL."""
+        if x_train is not None:
+            self.set_data(x_train, y_train)
+        if self.x_train is None:
+            raise ValueError("no training data: call fit(x, y) or set_data")
+        if self.device.type == "cuda":
+            _check_matmul_precision(self.config)
+        x, y = self.x_train, self.y_train
+        if kwargs.get("method") == "iterative":
+            kwargs.pop("method")
+            kwargs.pop("return_diagnostics", None)
+            generator = kwargs.pop("generator", None)
+            mean = None if type(self.mean) is ZeroMean else self.mean
+            res = iterative_fit_result(
+                fit_iterative(self.kernel, x, y, generator, mean=mean,
+                              return_diagnostics=True, **kwargs),
+                mean is not None)
+        else:
+            res = _fit(self.kernel, x, y, mean=self.mean, config=self.config,
+                       **kwargs)
+        self.noise = res.noise
+        return res
+
+    @torch.no_grad()
+    def log_marginal_likelihood(self) -> torch.Tensor:
+        """The dense log marginal likelihood of the training data at the
+        installed hyperparameters (an [n, n] Gram: small n)."""
+        self._ensure_params()
+        resid = self.y_train - self.mean.mean(self.x_train)
+        K = self.kernel.gram(self.x_train, self.x_train)
+        return chol.mll(K, resid, self.noise, self.config.jitter)
 
     def _ensure_params(self):
         if self.x_train is None:

@@ -1,13 +1,29 @@
-"""Iterative (factorisation-free) exact-GP posterior: the large-n serving path.
+"""Iterative (factorisation-free) exact GP: the large-n fitting and serving
+paths.
 
-Counterpart of the posterior half of
-``gaussianprocessfundamentals_tpu/models/iterative.py``:
-``build_preconditioner`` (``:64``), ``apply_P_inv`` (``:165``),
-``iterative_posterior_mean`` (``:767``), ``iterative_posterior`` (``:838``)
-and the chunked route ``iterative_posterior_chunked`` (``:926``) with its
-setup and chunk steps (``:886``, ``:908``). K is never formed: every Kₙ·V
-goes through :func:`..ops.cuda_gram.fused_matvec_for`, the CUDA kernel on a
-card and the plain row-panel version on the CPU.
+Counterpart of ``gaussianprocessfundamentals_tpu/models/iterative.py``:
+
+* the NLL half (``:35-752``): ``_cot_vjp``, ``_core_impl``,
+  ``iterative_nll_and_grad`` and ``fit_iterative`` (Adam over the mBCG +
+  SLQ NLL with its step guard);
+* the posterior half: ``build_preconditioner`` (``:64``), ``apply_P_inv``
+  (``:165``), ``iterative_posterior_mean`` (``:767``),
+  ``iterative_posterior`` (``:838``) and the chunked route
+  ``iterative_posterior_chunked`` (``:926``) with its setup and chunk steps
+  (``:886``, ``:908``).
+
+Above 40k rows K is never formed: every Kₙ·V goes through
+:func:`..ops.cuda_gram.fused_matvec_for` (K1) and the gradient's low-rank
+contraction through :func:`..ops.cuda_lrvjp.fused_lowrank_vjp_for` (K2),
+the CUDA kernels on a card and their plain versions on the CPU.
+
+The NLL's probes are arguments of :func:`_core_impl` (u [n, s] and
+w [m, s] standard-normal draws); the public functions draw them from an
+explicit ``torch.Generator``. The JAX package drew them from a key inside
+its core, a stream torch cannot replay, so the parity tests hand both
+cores the same numbers. Not ported: the mesh branch, ``block`` and
+``scan_chunk`` (TPU program-size knobs), the per-step fallback and the
+vmapped-restart program; restarts run one after another.
 
 Numerics that differ from the JAX package, because the H100 has native
 float64 and fast batched QR:
@@ -18,7 +34,9 @@ float64 and fast batched QR:
   float32 one-sided Jacobi SVD, keeping small singular values at least as
   accurate;
 * the variance's two column dots accumulate in float64, in place of the
-  double-float32 arithmetic.
+  double-float32 arithmetic;
+* the SLQ eigensolves are one batched float64 ``torch.linalg.eigh`` on the
+  device (:func:`..linalg.mbcg.slq_logdet`).
 """
 from __future__ import annotations
 
@@ -28,7 +46,14 @@ from typing import Optional
 
 import torch
 
-from gaussianprocessfundamentals_tpu_torch.linalg.mbcg import mbcg
+from gaussianprocessfundamentals_tpu_torch.fit.transforms import (
+    assign_leaves,
+    constrain,
+    leaf_copy,
+    unconstrain,
+)
+from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import LOG_2PI
+from gaussianprocessfundamentals_tpu_torch.linalg.mbcg import mbcg, slq_logdet
 from gaussianprocessfundamentals_tpu_torch.linalg.pivchol import (
     partial_pivoted_cholesky,
 )
@@ -36,6 +61,20 @@ from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
     fused_matvec_cross_for,
     fused_matvec_for,
 )
+from gaussianprocessfundamentals_tpu_torch.ops.cuda_lrvjp import (
+    fused_lowrank_vjp_for,
+)
+from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import grads_or_zeros
+from gaussianprocessfundamentals_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+
+# _core_impl builds K once (plain matmuls in CG, the Gram's own autograd
+# graph for the gradient) up to this many rows, and streams above it
+# (JAX iterative.py:259-260): a float32 K is 6.4 GB at 40k
+_MATERIALIZE_MAX_N = 40_000
 
 
 def build_preconditioner(kernel, x: torch.Tensor, m: int, noise):
@@ -96,6 +135,311 @@ def apply_P_inv(W_b, d_rng, noise, V):
     comp = (comp - W_b @ c2) / noise
     out = comp + W_b @ (d_rng[:, None] * c)
     return out[:, 0] if vec else out
+
+
+def _cot_vjp(kernel, x, U, W, dense_gram_vjp):
+    """Contract the low-rank cotangent U·Wᵀ with ∂K/∂θ: through the Gram's
+    own autograd graph when K is materialised, else K2 on a card or the
+    plain streamed VJP on the CPU."""
+    if dense_gram_vjp is not None:
+        return dense_gram_vjp(U @ W.T)
+    return fused_lowrank_vjp_for(kernel, x)(U, W)
+
+
+def _core_impl(kernel, x, y, noise, u, w=None, max_iters: int = 100,
+               tol: float = 1e-6, precond_m: int = 128,
+               early_exit: bool = True, materialize: Optional[bool] = None,
+               mean=None):
+    """(data_fit, log_P, alphas, betas, z_weights, grad_params, grad_noise,
+    grad_mean, resid) for the kernel's and mean's installed parameters,
+    without forming K above ``_MATERIALIZE_MAX_N`` rows.
+
+    ``u`` [n, s] and ``w`` [m, s] are standard-normal draws: with
+    ``precond_m > 0`` the probes are z = σu + W_b·diag(sv)·w ~ N(0, P) for
+    the rank-m pivoted-Cholesky preconditioner P = σ²I + AAᵀ; with
+    ``precond_m = 0`` (no preconditioner) ``u`` is the probe matrix itself
+    (the public functions draw it Rademacher) and ``w`` is unused.
+
+    The gradient cotangent ½(Kₙ⁻¹ − ααᵀ) uses P⁻¹ as an exact low-rank
+    control variate, Kₙ⁻¹ = P⁻¹ + E[sym((Ẑ − P⁻¹Z)(P⁻¹Z)ᵀ)], so it is rank
+    2s + m + 1 plus the diagonal I/(2σ²) term. ``resid`` is the relative
+    residual ‖r‖/‖b‖ per CG column; ``grad_mean`` = −(∂m/∂mp)ᵀα comes from
+    the same solve. The solves run without autograd; only the Gram VJP,
+    the diagonal term and the mean's VJP differentiate.
+    """
+    n = x.shape[0]
+    s = u.shape[1]
+    noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device).detach()
+    if mean is not None:
+        with mean.differentiable() as mp, torch.enable_grad():
+            m_of_x = mean.mean(x)
+        y = y - m_of_x.detach()
+    if materialize is None:
+        materialize = n <= _MATERIALIZE_MAX_N
+    with kernel.differentiable() as kp:
+        leaves = tree_leaves(kp)
+        dense_gram_vjp = None
+        with torch.no_grad():
+            if materialize:
+                with torch.enable_grad():
+                    K = kernel.gram(x, x)
+                Kd = K.detach()
+                matvec = lambda V: Kd @ V + noise * V  # noqa: E731
+                dense_gram_vjp = lambda cot: tree_unflatten(  # noqa: E731
+                    kp, grads_or_zeros(K, leaves, cot))
+            else:
+                kmv = fused_matvec_for(kernel, x)
+                matvec = lambda V: kmv(V) + noise * V  # noqa: E731
+
+            if precond_m > 0:
+                m = min(precond_m, n)
+                P_inv, W_b, sv, _, log_P = build_preconditioner(
+                    kernel, x, m, noise)
+                # z ~ N(0, P): cov(σu + W·diag(sv)·w) = σ²I + W sv² Wᵀ = P
+                z = torch.sqrt(noise) * u + W_b @ (sv[:, None] * w)
+                zt = P_inv(z)  # P⁻¹z, also the SLQ e₁ weights zᵀP⁻¹z
+            else:
+                P_inv = None
+                log_P = torch.zeros((), dtype=x.dtype, device=x.device)
+                z = zt = u
+            z_weights = torch.sum(z * zt, dim=0)
+
+            B = torch.cat([y[:, None], z], dim=1)
+            res = mbcg(matvec, B, max_iters=max_iters, tol=tol,
+                       precond=P_inv, early_exit=early_exit)
+            alpha = res.solves[:, 0]
+            zhat = res.solves[:, 1:]
+            col_norms = torch.linalg.norm(B, dim=0)
+            resid_rel = res.resid_norm / torch.clamp_min(
+                col_norms, torch.finfo(B.dtype).tiny)
+            data_fit = torch.dot(y, alpha)
+
+            if precond_m > 0:
+                # P⁻¹ = I/σ² − G·Gᵀ with G = W_b·diag(√(sv²/(σ²(sv²+σ²))))
+                G = W_b * torch.sqrt(sv * sv / (noise * (sv * sv + noise)))[None, :]
+                rhat = zhat - zt  # (Kₙ⁻¹ − P⁻¹)Z
+                U = torch.cat([rhat / (4.0 * s), zt / (4.0 * s), -0.5 * G,
+                               -0.5 * alpha[:, None]], dim=1)
+                W = torch.cat([zt, rhat, G, alpha[:, None]], dim=1)
+                trace_est = (n / noise - torch.sum(G * G)
+                             + torch.mean(torch.sum(zt * rhat, dim=0)))
+            else:
+                U = torch.cat([zhat / (4.0 * s), zt / (4.0 * s),
+                               -0.5 * alpha[:, None]], dim=1)
+                W = torch.cat([zt, zhat, alpha[:, None]], dim=1)
+                trace_est = torch.mean(torch.sum(zt * zhat, dim=0))
+            grad_noise = 0.5 * (trace_est - torch.dot(alpha, alpha))
+
+        grad_params = _cot_vjp(kernel, x, U, W, dense_gram_vjp)
+        if precond_m > 0:
+            # the diagonal I/(2σ²) term contracts to (1/2σ²)·∂tr(K)/∂θ
+            with torch.enable_grad():
+                tr = torch.sum(kernel.diag(x)) / (2.0 * noise)
+            diag_grad = tree_unflatten(kp, grads_or_zeros(tr, leaves))
+            grad_params = tree_map(lambda a, b: a + b, grad_params, diag_grad)
+    grad_mean = {}
+    if mean is not None:
+        grad_mean = tree_unflatten(mp, grads_or_zeros(
+            m_of_x, tree_leaves(mp), -alpha))
+    return (data_fit, log_P, res.alphas[:, 1:], res.betas[:, 1:], z_weights,
+            grad_params, grad_noise, grad_mean, resid_rel)
+
+
+def draw_probes(x, n_probes: int, m: int, generator=None):
+    """The core's (u [n, s], w [m, s]) draws from ``generator`` (or the
+    global stream of x's device): standard normal, or ``u`` Rademacher and
+    no ``w`` when ``m == 0`` (no preconditioner)."""
+    dev = generator.device if generator is not None else x.device
+    shape_u = (x.shape[0], n_probes)
+    u = torch.randn(shape_u, generator=generator, dtype=x.dtype, device=dev)
+    if m == 0:
+        return torch.where(u >= 0, 1.0, -1.0).to(x), None
+    w = torch.randn((m, n_probes), generator=generator, dtype=x.dtype,
+                    device=dev)
+    return u.to(x.device), w.to(x.device)
+
+
+def iterative_nll_and_grad(
+    kernel, x, y, noise, generator=None, num_probes: int = 8,
+    max_iters: int = 100, tol: float = 1e-6, precond_m: int = 128,
+    early_exit: bool = True, materialize: Optional[bool] = None, mean=None,
+):
+    """(nll, grad_kernel_params, grad_noise, resid[, grad_mean]) of the
+    exact-GP NLL at the kernel's and mean's installed parameters, by mBCG
+    and SLQ; ``grad_mean`` is appended iff ``mean`` is given. The probes
+    come from ``generator``. Everything stays on x's device: the SLQ
+    eigensolves are a batched float64 ``eigh`` there."""
+    n = x.shape[0]
+    m = min(precond_m, n) if precond_m > 0 else 0
+    u, w = draw_probes(x, num_probes, m, generator)
+    (data_fit, log_P, al, be, zw, grad_params, grad_noise, grad_mean,
+     resid) = _core_impl(kernel, x, y, noise, u, w, max_iters, tol,
+                         precond_m, early_exit, materialize, mean)
+    logdet = log_P.double() + slq_logdet(al, be, zw)
+    nll = (0.5 * data_fit.double() + 0.5 * logdet
+           + 0.5 * n * LOG_2PI).to(x.dtype)
+    if mean is not None:
+        return nll, grad_params, grad_noise, resid, grad_mean
+    return nll, grad_params, grad_noise, resid
+
+
+def _step_guard(nll, g_u, resid, resid_guard):
+    """True (a device bool) when a step must be skipped: a non-finite
+    gradient or NLL, or with ``resid_guard`` a median relative CG residual
+    above it. The median, not the max: at large n one probe column always
+    sits at its float32 floor, while the runaway into an ill-conditioned
+    region shows as most columns degrading at once."""
+    finite = torch.stack([torch.isfinite(g).all() for g in tree_leaves(g_u)]
+                         + [torch.isfinite(nll)])
+    bad = ~finite.all()
+    if resid_guard is not None:
+        bad = (bad | ~torch.isfinite(resid).all()
+               | ~(torch.quantile(resid, 0.5) <= resid_guard))
+    return bad
+
+
+def _adam_iterative(kernel, mean, x, y, u0, generator, steps, lr,
+                    optimize_noise, init_noise, resid_guard, project,
+                    callback, core_kw):
+    """One Adam run over the iterative NLL from ``u0``; returns the final
+    unconstrained params, the NLL history and the per-step skip flags.
+
+    A skipped step zeroes its gradient, lets Adam advance its moments and
+    step count on it, and keeps the params: the JAX package's
+    ``guard_update`` (``iterative.py:586-624``) step for step.
+    """
+    pos = kernel.positivity()
+    mpos = mean.positivity() if mean is not None else {}
+    u = leaf_copy(u0, project)
+    leaves = tree_leaves(u)
+    opt = torch.optim.Adam(leaves, lr=lr)
+    init_noise_t = torch.as_tensor(init_noise, dtype=x.dtype, device=x.device)
+    hist, bads = [], []
+    for i in range(steps):
+        ud = tree_map(torch.Tensor.detach, u)
+        kp = constrain(pos, ud["kernel"])
+        kernel.set_params(kp)
+        noise = torch.exp(ud["log_noise"]) if optimize_noise else init_noise_t
+        if mean is not None:
+            mp = constrain(mpos, ud["mean"])
+            mean.set_params(mp)
+            nll, g_kp, g_noise, resid, g_mp = iterative_nll_and_grad(
+                kernel, x, y, noise, generator, mean=mean, **core_kw)
+        else:
+            nll, g_kp, g_noise, resid = iterative_nll_and_grad(
+                kernel, x, y, noise, generator, **core_kw)
+        # chain rule through the log-reparameterisation
+        chain = lambda g, p, is_pos: g * p if is_pos else g  # noqa: E731
+        g_u = {"kernel": tree_map(chain, g_kp, kp, pos),
+               "log_noise": (g_noise * noise if optimize_noise
+                             else torch.zeros_like(noise))}
+        if mean is not None:
+            g_u["mean"] = tree_map(chain, g_mp, mp, mpos)
+        g_u = tree_map(lambda _, g: g, u, g_u)  # u's leaf order
+        bad = _step_guard(nll, g_u, resid, resid_guard)
+        before = [p.detach().clone() for p in leaves]
+        for p, g in zip(leaves, tree_leaves(g_u)):
+            p.grad = torch.where(bad, torch.zeros_like(g), g).to(p.dtype)
+        opt.step()
+        if project is not None:
+            assign_leaves(u, project(u))
+        with torch.no_grad():
+            for p, b in zip(leaves, before):
+                p.copy_(torch.where(bad, b, p))
+        hist.append(nll.detach())
+        bads.append(bad)
+        if callback is not None:
+            callback(i, float(nll))
+    return tree_map(torch.Tensor.detach, u), torch.stack(hist), torch.stack(bads)
+
+
+def fit_iterative(
+    kernel, x, y, generator=None, steps: int = 100, lr: float = 0.05, num_probes: int = 8,
+    max_iters: int = 100, optimize_noise: bool = True,
+    init_noise: float = 1e-2, xrange=None, callback=None, tol: float = 1e-6,
+    precond_m: int = 128, early_exit: bool = True,
+    resid_guard: Optional[float] = None, materialize: Optional[bool] = None,
+    return_diagnostics: bool = False, init_generator=None, mean=None,
+    enforce_bounds: bool = False, restarts: int = 0,
+):
+    """Adam over the iterative NLL: exact-GP fitting at N = 100k+ scale.
+
+    Returns ``(kernel_params, noise, history[, diagnostics])``, or with a
+    ``mean`` ``(kernel_params, mean_params, noise, history[,
+    diagnostics])``, as the JAX package does; the fitted parameters are
+    also installed in the kernel and mean modules.
+
+    * ``generator`` draws every step's probes (default: seed 0 on x's
+      device); ``init_generator`` draws a random initial point inside the
+      bounds (default: the kernel's and mean's deterministic defaults).
+    * ``resid_guard`` skips steps whose median relative CG residual is
+      above it, and non-finite steps are always skipped;
+      ``diagnostics["frozen_frac"]`` is the share of skipped steps (near
+      1.0 means the fit did nothing and returned its initial point).
+    * ``enforce_bounds`` clips the kernel hyperparameters into
+      ``kernel.bounds(xrange, n)`` after every update.
+    * ``restarts > 0`` runs that many extra fits from random initial
+      points inside the bounds, one after another, each on the same probe
+      stream; the best final NLL wins, NaN-safe.
+    """
+    from gaussianprocessfundamentals_tpu_torch.fit.fit import bounds_projection
+
+    n = x.shape[0]
+    if xrange is None:
+        xrange = torch.stack([x.min(dim=0).values, x.max(dim=0).values],
+                             dim=-1).cpu().numpy()
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(0)
+    project = (bounds_projection(kernel, xrange, n) if enforce_bounds
+               else None)
+    pos = kernel.positivity()
+    mpos = mean.positivity() if mean is not None else {}
+
+    def make_u0(g):
+        to_x = lambda t: t.to(x.device)  # noqa: E731
+        u0 = {
+            "kernel": unconstrain(pos, tree_map(to_x, kernel.init_params(
+                xrange, n, generator=g, dtype=x.dtype))),
+            "log_noise": torch.log(torch.as_tensor(init_noise, dtype=x.dtype,
+                                                   device=x.device)),
+        }
+        if mean is not None:
+            u0["mean"] = unconstrain(mpos, tree_map(to_x, mean.init_params(
+                xrange, n, generator=g, dtype=x.dtype)))
+        return u0
+
+    core_kw = dict(num_probes=num_probes, max_iters=max_iters, tol=tol,
+                   precond_m=precond_m, early_exit=early_exit,
+                   materialize=materialize)
+    probe_state = generator.get_state()
+    best = None
+    for i in range(restarts + 1):
+        g_init = init_generator if i == 0 else torch.Generator().manual_seed(
+            generator.initial_seed() + 0xA110 + i)
+        generator.set_state(probe_state)
+        run = _adam_iterative(
+            kernel, mean, x, y, make_u0(g_init), generator, steps, lr,
+            optimize_noise, init_noise, resid_guard, project, callback,
+            core_kw)
+        final = float(run[1][-1])
+        # NaN-safe: a non-finite incumbent always loses to a finite
+        # challenger
+        if best is None or (final == final and not best[0] <= final):
+            best = (final, run)
+    u, hist, bads = best[1]
+    kp = constrain(pos, u["kernel"])
+    kernel.set_params(kp)
+    noise = (torch.exp(u["log_noise"]) if optimize_noise
+             else torch.as_tensor(init_noise, dtype=x.dtype, device=x.device))
+    out = (kp,)
+    if mean is not None:
+        mp = constrain(mpos, u["mean"])
+        mean.set_params(mp)
+        out = out + (mp,)
+    out = out + (noise, hist)
+    if return_diagnostics:
+        return out + ({"frozen_frac": float(bads.float().mean())},)
+    return out
 
 
 def _posterior_precond(kernel, x, noise, precond_m):

@@ -198,12 +198,12 @@ def fused_matvec_cross_for(kernel, x1, x2):
         raise NotImplementedError(
             f"{kernel.canonical_str()} at d={x1.shape[-1]}: {_K3_MISSING}"
         )
-    ls = kernel.lengthscale
+    ls = kernel.lengthscale.detach()
     if ls.ndim > 0:
         x1, x2, ls_f = x1 / ls, x2 / ls, 1.0
     else:
         ls_f = float(ls)
-    var = float(kernel.variance) if kernel.scaled else 1.0
+    var = float(kernel.variance.detach()) if kernel.scaled else 1.0
     return lambda V: fused_gram_matvec_cross(x1, x2, V, ls_f, var, kind)
 
 

@@ -1,15 +1,22 @@
 """Materialisation-free Gram products in plain PyTorch.
 
-Counterpart of ``streamed_gram_matvec`` (``:78``) and
-``streamed_gram_matvec_cross`` (``:123``) of
-``gaussianprocessfundamentals_tpu/ops/gram_matvec.py``: K(x1, x2)·V built in
-[block, n2] row panels, each used and dropped, so memory is O(block·n2) and
-K never exists whole. This is the CPU path of the port and the plain version
-the CUDA kernel of :mod:`.cuda_gram` is held against.
+Counterpart of ``streamed_gram_matvec`` (``:78``),
+``streamed_gram_matvec_cross`` (``:123``), ``lowrank_gram_vjp`` (``:205``)
+and ``lowrank_gram_vjp_cross`` (``:233``) of
+``gaussianprocessfundamentals_tpu/ops/gram_matvec.py``: K(x1, x2)·V and the
+gradient of Σ(UWᵀ)∘K(x1, x2) built in [block, n2] row panels, each used and
+dropped, so memory is O(block·n2) and K never exists whole. This is the CPU
+path of the port and the plain version the CUDA kernels of
+:mod:`.cuda_gram` (K1) and :mod:`.cuda_lrvjp` (K2) are held against.
 """
 from __future__ import annotations
 
 import torch
+
+from gaussianprocessfundamentals_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_unflatten,
+)
 
 
 def streamed_gram_matvec_cross(
@@ -31,3 +38,42 @@ def streamed_gram_matvec(
 ) -> torch.Tensor:
     """K(x, x) @ V in row panels."""
     return streamed_gram_matvec_cross(kernel, x, x, V, block)
+
+
+def grads_or_zeros(out: torch.Tensor, leaves, grad_outputs=None):
+    """``torch.autograd.grad`` of ``out`` with respect to ``leaves``, with
+    zeros for leaves ``out`` does not depend on (an unscaled kernel's
+    diagonal depends on nothing)."""
+    if not out.requires_grad:
+        return [torch.zeros_like(p) for p in leaves]
+    gs = torch.autograd.grad(out, leaves, grad_outputs, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(gs, leaves)]
+
+
+def lowrank_gram_vjp_cross(
+    kernel, x1: torch.Tensor, x2: torch.Tensor, U: torch.Tensor,
+    W: torch.Tensor, block: int = 2048,
+) -> dict:
+    """∂/∂θ of Σᵢⱼ (U Wᵀ)ᵢⱼ K(x1, x2)ᵢⱼ(θ) for the kernel's installed
+    hyperparameters θ, as a params tree; U: [n1, r], W: [n2, r].
+
+    Each [block, n2] panel of K and of the cotangent is built, its scalar
+    contraction differentiated by autograd, and both dropped: memory is
+    O(block·n2), and no panel is kept for a later backward pass.
+    """
+    with torch.enable_grad(), kernel.differentiable() as params:
+        leaves = tree_leaves(params)
+        grads = [torch.zeros_like(p) for p in leaves]
+        Wt = W.detach().T
+        for s in range(0, x1.shape[0], block):
+            Kb = kernel.gram(x1[s:s + block], x2)
+            cot_b = U[s:s + block].detach() @ Wt
+            gs = grads_or_zeros(torch.sum(Kb * cot_b), leaves)
+            grads = [a + b for a, b in zip(grads, gs)]
+    return tree_unflatten(params, grads)
+
+
+def lowrank_gram_vjp(kernel, x: torch.Tensor, U: torch.Tensor,
+                     W: torch.Tensor, block: int = 2048) -> dict:
+    """Square (x1 = x2 = x) form of :func:`lowrank_gram_vjp_cross`."""
+    return lowrank_gram_vjp_cross(kernel, x, x, U, W, block)

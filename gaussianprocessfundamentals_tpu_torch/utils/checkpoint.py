@@ -1,10 +1,12 @@
-"""Load a checkpoint written by the JAX package.
+"""Checkpoints in the JAX package's format, both ways.
 
 The JAX package saves a fit as ``<path>.json`` (the kernel and mean ASTs,
 the noise) and ``<path>.npz`` (the hyperparameters, keyed by their pytree
-path, e.g. ``k:['lengthscale']``; ``utils/checkpoint.py:36-94`` there).
-This reads both with ``json`` and ``numpy`` only and installs the values in
-the port's modules, so weights fitted by the JAX package serve here.
+path: ``k:['lengthscale']``, ``m:['children']/[0]/['c']``;
+``utils/checkpoint.py:36-94`` there). :func:`load` reads both with ``json``
+and ``numpy`` only and installs the values in the port's modules;
+:func:`save` writes the same two files from the modules, so a fit from
+either package loads in the other.
 """
 from __future__ import annotations
 
@@ -23,40 +25,95 @@ from gaussianprocessfundamentals_tpu_torch.means.functions import (
     MeanFunction,
     mean_from_dict,
 )
+from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_map
 
 _PATH_KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
 
-def _param_name(key: str) -> str:
-    """``"['lengthscale']"`` (a JAX pytree path) or ``"lengthscale"`` →
-    ``"lengthscale"``. Nested paths belong to composite nodes, which are
-    not ported yet."""
+def _path(key: str) -> list:
+    """``"['children']/[0]/['c']"`` → ``["children", 0, "c"]``; a bare
+    name is a path of one."""
     parts = _PATH_KEY.findall(key)
     if not parts:
-        return key
-    if len(parts) != 1 or not parts[0][0]:
-        raise NotImplementedError(
-            f"parameter path {key!r} belongs to a composite node; composite "
-            "kernels and means are not ported to the PyTorch package yet"
-        )
-    return parts[0][0]
+        return [key]
+    return [name if name else int(index) for name, index in parts]
 
 
-def params_from_numpy(module, flat: dict, device=None, dtype=None):
-    """Install hyperparameters given as numpy arrays (keys as in the JAX
-    checkpoint, ``"['lengthscale']"``, or bare names) into a kernel or mean
-    module. Returns the module."""
-    params = {
-        _param_name(k): torch.tensor(np.asarray(v), device=device,
-                                     dtype=dtype)
-        for k, v in flat.items()
+def _tuples(node):
+    """Dicts keyed 0..k-1 (sequence positions in a path) become tuples."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return tuple(_tuples(node[i]) for i in range(len(node)))
+    return {k: _tuples(v) for k, v in node.items()}
+
+
+def tree_from_numpy(params: dict, device=None, dtype=None) -> dict:
+    """The JAX package's parameters (numpy or JAX arrays) as the port's
+    params tree of tensors. ``params`` is a params tree as the JAX package
+    holds it (a ``MeanSum``'s is ``{"children": ({"c": …}, {"slope":
+    …})}``), or flat keys: pytree paths as in its checkpoints
+    (``"['children']/[0]/['c']"``) or bare names."""
+    tree: dict = {}
+    for key, value in params.items():
+        *head, last = _path(key)
+        node = tree
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = value
+    return tree_map(
+        lambda v: torch.tensor(np.asarray(v), device=device, dtype=dtype),
+        _tuples(tree),
+    )
+
+
+def params_from_numpy(module, params: dict, device=None, dtype=None):
+    """Install the JAX package's parameters (see :func:`tree_from_numpy`)
+    in a kernel or mean module. Returns the module."""
+    return module.set_params(tree_from_numpy(params, device, dtype))
+
+
+def _flatten(tree) -> dict:
+    """Params tree → {pytree path: numpy array}, paths as the JAX package
+    writes them (``['name']`` for a dict key, ``[i]`` for a position)."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [f"['{k}']"])
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, path + [f"[{i}]"])
+        else:
+            out["/".join(path)] = node.detach().cpu().numpy()
+
+    walk(tree, [])
+    return out
+
+
+def save(path: str, kernel: Kernel, mean: Optional[MeanFunction] = None,
+         noise=None, extra: Optional[dict] = None) -> None:
+    """Write ``<path>.json`` (ASTs, noise, ``extra``) and ``<path>.npz``
+    (the hyperparameters installed in ``kernel`` and ``mean``)."""
+    meta = {
+        "kernel": kernel.to_dict(),
+        "mean": mean.to_dict() if mean is not None else None,
+        "noise": float(noise) if noise is not None else None,
+        "extra": extra or {},
     }
-    return module.set_params(params)
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f, indent=2)
+    arrays = {"k:" + k: v for k, v in _flatten(kernel.get_params()).items()}
+    if mean is not None:
+        arrays.update({"m:" + k: v
+                       for k, v in _flatten(mean.get_params()).items()})
+    np.savez(path + ".npz", **arrays)
 
 
 def load(path: str, device=None, dtype=None) -> Tuple[
         Kernel, Optional[MeanFunction], Optional[float]]:
-    """Read ``<path>.json`` and ``<path>.npz`` written by the JAX package's
+    """Read ``<path>.json`` and ``<path>.npz`` written by either package's
     ``save``; returns ``(kernel, mean, noise)`` with the hyperparameters
     installed in the modules (mean is None when none was saved)."""
     with open(path + ".json") as f:

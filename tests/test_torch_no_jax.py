@@ -1,5 +1,5 @@
-"""The PyTorch package stands alone: importing it and serving a posterior
-loads no JAX, and importing it needs no CUDA, nvcc or triton."""
+"""The PyTorch package stands alone: importing it, fitting and serving a
+posterior load no JAX, and importing it needs no CUDA, nvcc or triton."""
 import json
 import os
 import subprocess
@@ -26,18 +26,26 @@ gpt.params_from_numpy(k, {"lengthscale": np.float32(0.1)})
 gp = gpt.GaussianProcess(k, noise=1e-2, device="cpu").set_data(x, y)
 post = gp.posterior(np.linspace(0, 1, 20, dtype=np.float32)[:, None],
                     method="iterative")
+fitted = gpt.GaussianProcess(gpt.SquaredExponentialKernel(scaled=True),
+                             gpt.ConstantMean() + gpt.LinearMean(dim=1),
+                             device="cpu")
+res = fitted.fit(x, y, method="iterative", steps=3, precond_m=16, max_iters=20,
+                 materialize=False)
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
                         if m.startswith("gaussianprocessfundamentals_tpu.")
                         or m == "gaussianprocessfundamentals_tpu"),
     "triton": "triton" in sys.modules,
-    "finite": bool(torch.isfinite(post.mean).all() and torch.isfinite(post.var).all()),
+    "finite": bool(torch.isfinite(post.mean).all() and torch.isfinite(post.var).all()
+                   and torch.isfinite(res.history).all()),
+    "fit_steps": len(res.history),
 }))
 """
 
 
 def test_port_imports_and_serves_without_jax():
+    """Also a 3-step iterative fit on the streamed (K1 + K2 plain) route."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests
@@ -47,7 +55,8 @@ def test_port_imports_and_serves_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out == {"jax": [], "reference": [], "triton": False, "finite": True}
+    assert out == {"jax": [], "reference": [], "triton": False, "finite": True,
+                   "fit_steps": 3}
 
 
 def test_no_module_of_the_port_imports_jax():

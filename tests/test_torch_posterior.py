@@ -139,7 +139,8 @@ def test_facade_defaults_match_jax():
     x, y, xt = _data(200, 20, seed=4)
     jgp = gpf.GaussianProcess(gpf.SquaredExponentialKernel())
     jgp.set_data(jnp.asarray(x), jnp.asarray(y))
-    tgp = gpt.GaussianProcess(gpt.SquaredExponentialKernel()).set_data(x, y)
+    tgp = gpt.GaussianProcess(gpt.SquaredExponentialKernel(),
+                              device="cpu").set_data(x, y)
     ref = jgp.posterior(jnp.asarray(xt))
     got = tgp.posterior(xt)
     np.testing.assert_allclose(got.mean.numpy(), np.asarray(ref.mean),
@@ -149,11 +150,13 @@ def test_facade_defaults_match_jax():
 
 
 def test_facade_refuses_what_this_slice_does_not_serve():
-    tgp = gpt.GaussianProcess(gpt.SquaredExponentialKernel())
+    tgp = gpt.GaussianProcess(gpt.SquaredExponentialKernel(), device="cpu")
     with pytest.raises(ValueError, match="set_data"):
         tgp.posterior(np.zeros((3, 1)))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tgp.fit(np.zeros((3, 1)), np.zeros(3))
+    with pytest.raises(ValueError, match="training data"):
+        tgp.fit()
+    with pytest.raises(NotImplementedError, match="M7"):
+        tgp.fit(np.zeros((3, 1)), np.zeros(3), method="scipy-bfgs")
     tgp.set_data(np.zeros((3, 1)), np.zeros(3))
     with pytest.raises(ValueError, match="method"):
         tgp.posterior(np.zeros((2, 1)), method="cholesky")
