@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving and training paths once on one GPU.
+"""Drive the PyTorch port's serving and training paths once on one GPU:
+for an SE kernel (K1 and K2) and for the Mauna Loa composite (K3 and K4).
 
     python3 chip_smoke.py
 
@@ -7,9 +8,12 @@ non-zero):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions and the TF32 flags (both off: full-float32 matmuls);
-2. build: compile both kernels from the checkout, one nvcc for each source,
-   started together: Gram·V (K1, csrc/gram_matvec.cu) and the low-rank-
-   cotangent gradient (K2, csrc/lowrank_vjp.cu), sm_90a;
+2. build: every kernel from the checkout, one nvcc for each library, all
+   started together: Gram·V (K1, csrc/gram_matvec.cu), the low-rank-
+   cotangent gradient (K2, csrc/lowrank_vjp.cu), and the composite-
+   expression Gram·V (K3, csrc/expr_matvec.cu) and gradient (K4,
+   csrc/expr_vjp.cu) compiled with the code generated for each expression
+   of phases 11-17, sm_90a;
 3. K1 check: K1 against its plain PyTorch version on the card at ragged
    shapes, for SE, Matérn-3/2 and Matérn-5/2 at d = 1 and SE at d = 3;
    Phase 5 repeats the check at the main path's shapes (n = 100k,
@@ -41,23 +45,60 @@ non-zero):
    each beside its bound;
 10. profile: the fit of phase 8 again, warm (wall and seconds per step),
     then one fit step under ``torch.profiler``: device time by kernel and
-    the device's busy share of the step's wall time.
+    the device's busy share of the step's wall time;
+11. K3 check: K3 against its plain version at ragged shapes (n1 = 3000,
+    n2 = 5001, r = 1, 9, 256) for each leaf alone -- SE scalar and ARD at
+    d = 3, PER, LIN with an ARD offset at d = 3, Matérn-3/2 and -5/2 at
+    d = 1 and ARD at d = 3, RQ, CONST -- and the Mauna Loa composite,
+    within 5e-5·max|ref| (the JAX gates ``expr_matvec_*``); the composite
+    once at n = 65,536 against the float64 plain version; PER where its
+    float32 phase is not accurate enough -- at its defaults, at ℓ's lower
+    bound 5·range/n and at the period's 10·range/n (n = 100k) -- against
+    the float64 plain version, within the same limit;
+12. K4 check: the same expressions at r = 1, 17 and 273 with the JAX
+    gate's zero-mean cotangent, per parameter array max|diff| / max|ref|
+    ≤ 3e-3 (``expr_vjp_mauna``), and at r = 273 against the float64 plain
+    version; the sharp PER cases of phase 11 at r = 1, 17 and 273 against
+    the float64 plain version;
+13. small-n composite oracle: one streamed iterative NLL + gradient of the
+    composite at n = 4096 (K3 and K4), 64 probes, against the float64
+    dense NLL (2%) and its gradient (15% in relative L2 norm);
+14. composite training main path: ``GaussianProcess(SE~s·PER + SE~s + LIN
+    + WN~s).fit(method="auto")`` on the JAX package's Mauna-Loa-shaped
+    series at N = 100,000 (x and y min-max normalised), the knobs of
+    phase 8: NLL history, skipped steps, fitted parameters, peak memory
+    (≤ 8 GB), 25 K3 launches and 1 K4 launch per step;
+15. composite serving main path: ``.posterior`` of that fit at 1,000
+    points midway between training points: CG iterations and true
+    residual (≤ 1e-3) per solve, K3 launches, variances ≥ 0, mean RMSE
+    against the noise-free series (≤ 0.05 normalised);
+16. K3 at r = 1, 9 and 256 (the y-solve, the fit's CG, a posterior chunk)
+    and K4 at r = 273 at n = 100k on the composite's training inputs:
+    checked against their plain versions (K4 also against float64), then
+    timed in turns with them, each beside its bound;
+17. profile: one composite fit step under ``torch.profiler``.
 
-Each path's launch counts are set to 0 just before it is driven and read
-just after. The second-to-last line, after the card's name and power
-limit, is one JSON object that lists both kernels: launches on the main
-paths (``launches``: the posterior of phase 5 plus the fit of phase 8;
-``launches_by_path``: each alone), the largest absolute and relative
-differences from the plain version over the checks (relative: K1's
-max|diff| / max|ref|, K2's per scalar), the kernel's and the plain
-version's times at the main path's shapes, and the bound: the larger of the bytes the function must move over
-3.35 TB/s and its operations over their peak (2·n1·n2·(r + d) float32
-operations at 67 TFLOP/s; n1·n2 exponentials at 132 SMs × 16 per clock ×
-1.98 GHz on the special-function units). The last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it fails.
+Each path's launch counts (all four kernels) are set to 0 just before it
+is driven and read just after. The second-to-last line, after the card's
+name and power limit, is one JSON object that lists the four kernels:
+launches on the main paths (``launches``: the sum; ``launches_by_path``:
+the SE posterior of phase 5, the SE fit of phase 8, the composite fit of
+phase 14 and the composite posterior of phase 15), the largest absolute and
+relative differences from the plain version over the checks (relative:
+K1's and K3's max|diff| / max|ref|, K2's per scalar, K4's per parameter
+array), the kernel's and the plain version's times at the main path's
+shapes (K1 and K3 at r = 256; K3 also at r = 1 and 9 in
+``ms_by_width``, beside ``bound_ms_by_width``), and the bound: the larger
+of the bytes the function must move over 3.35 TB/s and its operations over
+their peak (2·n1·n2·(r + d) float32 operations at 67 TFLOP/s; the
+special-function calls per pair -- one exponential for K1 and K2; for K3
+and K4 the calls the expression needs (``_special_calls``) -- at 132 SMs ×
+16 per clock × 1.98 GHz). The last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA device it fails.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import time
@@ -111,26 +152,35 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both kernels, one nvcc each, started together."""
+    """Every kernel the smoke runs, one nvcc for each library, all started
+    together: K1 and K2 from their sources, and K3 and K4 generated for
+    every expression of the composite phases."""
     from gaussianprocessfundamentals_tpu_torch.ops import (
         cuda_build,
+        cuda_expr,
         cuda_gram,
         cuda_lrvjp,
     )
 
-    def timed(source):
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        cuda_build.build(source)
+        fn(*args)
         return time.perf_counter() - t0
 
     sources = ("gram_matvec.cu", "lowrank_vjp.cu")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        seconds = list(pool.map(timed, sources))
+    exprs = [(k, d) for _, k, d in _expr_cases()]
+    with ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(timed, cuda_build.build, src) for src in sources]
+        futures.append(pool.submit(timed, cuda_expr.prebuild, exprs))
+        seconds = [f.result() for f in futures]
     cuda_gram._lib()
     cuda_lrvjp._lib()
     for source, dt in zip(sources, seconds):
         log(f"[build] {source} -> {cuda_build.library_path(source).name} "
             f"in {dt:.2f} s")
+    log(f"[build] K3 and K4 for {len(exprs)} expressions "
+        f"({2 * len(exprs)} libraries, csrc/expr_matvec.cu and "
+        f"csrc/expr_vjp.cu with generated code) in {seconds[-1]:.2f} s")
 
 
 def phase_kernel_check() -> tuple[float, float]:
@@ -255,7 +305,6 @@ def phase_main() -> dict:
     import gaussianprocessfundamentals_tpu_torch as gpt
     from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
         fused_gram_matvec,
-        fused_gram_matvec_cross,
         plain_gram_matvec_cross,
     )
 
@@ -264,12 +313,13 @@ def phase_main() -> dict:
     gp = gpt.GaussianProcess(_se_kernel(), noise=NOISE, device="cuda").set_data(x, y)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_gram_matvec_cross.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     post = gp.posterior(xt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_gram_matvec_cross.launches
+    counts = _launch_counts()
+    launches = counts["K1"]
     peak = torch.cuda.max_memory_allocated()
 
     stats = post.solve_stats
@@ -315,7 +365,7 @@ def phase_main() -> dict:
             f"plain {times[r][1]:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
             f"({2 * N_MAIN * N_MAIN * r / (times[r][0] * 1e-3) / 1e12:.2f} TFLOP/s "
             f"in the kernel's product)")
-    return {"launches": launches, "times": times, "worst": worst}
+    return {"counts": counts, "times": times, "worst": worst}
 
 
 def _bound(n1: int, n2: int, d: int, r: int, in_bytes: int, out_bytes: int):
@@ -473,24 +523,17 @@ def _fit_model():
 
 
 def phase_fit() -> dict:
-    from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
-        fused_gram_matvec_cross,
-    )
-    from gaussianprocessfundamentals_tpu_torch.ops.cuda_lrvjp import (
-        fused_lowrank_vjp_cross,
-    )
-
     x, y = _trend_data(N_MAIN, seed=6)
     gp = _fit_model()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_gram_matvec_cross.launches = 0
-    fused_lowrank_vjp_cross.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     res = gp.fit(x, y, **FIT_KWARGS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = fused_gram_matvec_cross.launches, fused_lowrank_vjp_cross.launches
+    counts = _launch_counts()
+    k1, k2 = counts["K1"], counts["K2"]
     peak = torch.cuda.max_memory_allocated()
 
     hist = [float(v) for v in res.history]
@@ -526,7 +569,7 @@ def phase_fit() -> dict:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise RuntimeError(f"training path checks failed: {failed}")
-    return {"k1": k1, "k2": k2, "x": x, "y": y}
+    return {"counts": counts, "x": x, "y": y}
 
 
 def phase_fit_time(x) -> dict:
@@ -578,23 +621,28 @@ def phase_fit_time(x) -> dict:
 
 
 def phase_profile(x, y) -> None:
-    """One fit step under torch.profiler: device time by kernel, and the
-    union of the device's kernel intervals over the step's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    # the same fit again, warm: the first fit in a process pays one-time
-    # set-up (library handles, lazy kernel loading)
+    """The SE fit of phase 8 again, warm (the first fit in a process pays
+    one-time set-up: library handles, lazy kernel loading), then one of its
+    steps profiled."""
     t0 = time.perf_counter()
     _fit_model().fit(x, y, **FIT_KWARGS)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     log(f"[profile] warm fit at N={N_MAIN}, {FIT_STEPS} steps: wall {warm:.3f} s, "
         f"{warm / FIT_STEPS:.3f} s/step")
+    _profile_step(_fit_model, x, y, "profile")
+
+
+def _profile_step(make_gp, x, y, tag: str) -> None:
+    """One fit step under torch.profiler: device time by kernel, and the
+    union of the device's kernel intervals over the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     kw = dict(FIT_KWARGS, steps=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _fit_model().fit(x, y, **kw)
+        make_gp().fit(x, y, **kw)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -610,12 +658,558 @@ def phase_profile(x, y) -> None:
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
                 e.time_range.end - e.time_range.start)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[profile] one fit step at N={N_MAIN}: wall {wall_us / 1e3:.1f} ms, "
+    log(f"[{tag}] one fit step at N={N_MAIN}: wall {wall_us / 1e3:.1f} ms, "
         f"{len(spans)} device kernels, device busy {busy / 1e3:.1f} ms "
         f"({100 * busy / wall_us:.1f}% of wall, idle "
         f"{100 * (1 - busy / wall_us):.1f}%)")
     for name, us in top:
-        log(f"[profile]   {us / 1e3:9.2f} ms  {name[:100]}")
+        log(f"[{tag}]   {us / 1e3:9.2f} ms  {name[:100]}")
+
+
+# --- the composite kernel expression: K3 and K4 ------------------------------
+
+# the JAX package's flagship composite (examples/02_mauna_loa_composite.py)
+# at the knobs of the SE fit story above
+MAUNA_N_ORACLE = 4096
+K3_RTOL = 5e-5  # the JAX gates expr_matvec_mauna / expr_matvec_ard_d3
+K4_RTOL = 3e-3  # the JAX gate expr_vjp_mauna, per parameter array
+# K4 against the float64 plain version on the zero-mean cotangent: 14x the
+# worst error measured on one H100 over phases 12 and 16 (1.4e-5, the
+# composite's first variance at n = 100k), below the float32 plain
+# version's own error on the sharp PER cases (up to 0.65), far below the
+# O(1) of a mispaired row or column of U and W
+K4_RTOL_F64 = 2e-4
+
+
+def _mauna_kernel():
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    return (gpt.SquaredExponentialKernel(scaled=True) * gpt.PeriodicKernel()
+            + gpt.SquaredExponentialKernel(scaled=True) + gpt.LinearKernel()
+            + gpt.WhiteNoiseKernel(scaled=True))
+
+
+def _mauna_series(t):
+    """The JAX package's ``synth_mauna_loa`` formula without its noise:
+    trend + two seasonal harmonics, t in years."""
+    return (315.0 + 0.8 * (t - 1958.0) + 0.012 * (t - 1958.0) ** 2
+            + 3.0 * np.sin(2 * np.pi * t) + 0.8 * np.sin(4 * np.pi * t))
+
+
+def _mauna_data(n: int, n_test: int = 0):
+    """n monthly-shaped points of the Mauna Loa series over 1958-2018 with
+    the formula's 0.3 noise (seed 42), x and y min-max normalised to [0, 1]
+    as ``DataInput.from_arrays`` does; and ``n_test`` noise-free points
+    midway between training points, normalised the same way."""
+    t = np.linspace(1958.0, 2018.0, n)
+    y = _mauna_series(t) + 0.3 * np.random.default_rng(42).standard_normal(n)
+    t0, dt, y0, dy = t.min(), t.max() - t.min(), y.min(), y.max() - y.min()
+    x = torch.tensor((t - t0) / dt, dtype=torch.float32)[:, None].cuda()
+    yn = torch.tensor((y - y0) / dy, dtype=torch.float32).cuda()
+    idx = np.linspace(0, n - 2, n_test).astype(np.int64)
+    tt = 0.5 * (t[idx] + t[idx + 1])
+    xt = torch.tensor((tt - t0) / dt, dtype=torch.float32)[:, None].cuda()
+    truth = torch.tensor((_mauna_series(tt) - y0) / dy,
+                         dtype=torch.float32).cuda()
+    return x, yn, xt, truth
+
+
+def _tensors(tree):
+    """A params tree of floats and lists as float32 tensors (a list is one
+    per-dimension vector)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tensors(v) for v in tree)
+    return torch.tensor(tree, dtype=torch.float32)
+
+
+def _with_params(kernel, params):
+    """``kernel`` on the card holding ``params``."""
+    return kernel.set_params(_tensors(params)).cuda()
+
+
+MAUNA_PARAMS = {"children": (
+    {"children": ({"lengthscale": 0.3, "variance": 0.05},
+                  {"lengthscale": 0.8, "period": 0.05})},
+    {"lengthscale": 0.15, "variance": 0.2},
+    {"offset": [0.4]},
+    {"variance": 0.02})}
+
+
+def _expr_cases():
+    """(name, kernel on the card, d): each leaf alone -- SE scalar and ARD
+    at d = 3, PER, LIN with an ARD offset at d = 3, Matérn-3/2 and -5/2 at
+    d = 1 and ARD at d = 3, RQ, CONST -- and the Mauna Loa composite."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    ard = [0.2, 0.3, 0.4]
+    return [
+        ("se d=3", _with_params(gpt.SquaredExponentialKernel(dim=3, scaled=True),
+                                {"lengthscale": 0.4, "variance": 1.3}), 3),
+        ("se-ard d=3", _with_params(gpt.SquaredExponentialKernel(dim=3, scaled=True),
+                                    {"lengthscale": ard, "variance": 1.3}), 3),
+        ("per", _with_params(gpt.PeriodicKernel(scaled=True),
+                             {"lengthscale": 0.6, "period": 0.15,
+                              "variance": 0.9}), 1),
+        ("lin-ard d=3", _with_params(gpt.LinearKernel(dim=3, scaled=True),
+                                     {"offset": [0.1, 0.5, 0.9],
+                                      "variance": 0.7}), 3),
+        ("mat32", _with_params(gpt.Matern32Kernel(scaled=True),
+                               {"lengthscale": 0.2, "variance": 0.7}), 1),
+        ("mat32-ard d=3", _with_params(gpt.Matern32Kernel(dim=3, scaled=True),
+                                       {"lengthscale": ard, "variance": 0.7}), 3),
+        ("mat52", _with_params(gpt.Matern52Kernel(scaled=True),
+                               {"lengthscale": 0.2, "variance": 0.7}), 1),
+        ("mat52-ard d=3", _with_params(gpt.Matern52Kernel(dim=3, scaled=True),
+                                       {"lengthscale": ard, "variance": 0.7}), 3),
+        ("rq", _with_params(gpt.RationalQuadraticKernel(scaled=True),
+                            {"lengthscale": 0.2, "alpha": 0.7,
+                             "variance": 1.1}), 1),
+        ("const", _with_params(gpt.ConstantKernel(scaled=True),
+                               {"c": 0.8, "variance": 1.5}), 1),
+        ("mauna", _with_params(_mauna_kernel(), MAUNA_PARAMS), 1),
+    ]
+
+
+def _core(kernel):
+    from gaussianprocessfundamentals_tpu_torch.ops.expr import split_white_noise
+
+    return split_white_noise(kernel)[0]
+
+
+def _f64(kernel):
+    return copy.deepcopy(kernel).double()
+
+
+def _k3_check(kernel, x1, x2, V, tag, f64=False):
+    """K3 against its plain version on the same inputs: max|diff| within
+    K3_RTOL of max|ref|; with ``f64``, against the plain version run in
+    float64 instead, the float32 plain version's own distance printed
+    beside. Returns (max|diff|, max|diff| / max|ref|)."""
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
+        expr_gram_matvec_cross,
+    )
+    from gaussianprocessfundamentals_tpu_torch.ops.expr import (
+        plain_expr_gram_matvec_cross,
+    )
+
+    got = expr_gram_matvec_cross(kernel, x1, x2, V)
+    torch.cuda.synchronize()
+    ref = plain_expr_gram_matvec_cross(kernel, x1, x2, V)
+    torch.cuda.synchronize()
+    extra = ""
+    if f64:
+        ref64 = plain_expr_gram_matvec_cross(_f64(kernel), x1.double(),
+                                             x2.double(), V.double())
+        plain_err = float((ref.double() - ref64).abs().max())
+        err = float((got.double() - ref64).abs().max())
+        scale = float(ref64.abs().max())
+        extra = f" vs float64 (float32 plain {plain_err:.3e})"
+    else:
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+    limit = K3_RTOL * scale
+    ok = bool(torch.isfinite(got).all()) and err <= limit
+    log(f"[k3] {tag} n1={x1.shape[0]} n2={x2.shape[0]} r={V.shape[1]}: "
+        f"max|diff| {err:.3e}{extra} (limit {limit:.3e}, max|ref| "
+        f"{scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"K3 disagrees with its plain version: {tag}")
+    return err, err / scale
+
+
+def phase_k3_check() -> tuple:
+    g = torch.Generator().manual_seed(11)
+    n1, n2 = 3000, 5001
+    worst = (0.0, 0.0)
+    for name, kernel, d in _expr_cases():
+        core = _core(kernel)
+        x1 = torch.rand(n1, d, generator=g).cuda()
+        x2 = torch.rand(n2, d, generator=g).cuda()
+        for r in (1, 9, 256):
+            V = torch.randn(n2, r, generator=g).cuda()
+            worst = _worse(worst, _k3_check(core, x1, x2, V, name))
+    # accumulation depth: 65,536² pairs of the Mauna composite, float64
+    n = 65_536
+    x = torch.sort(torch.rand(n, 1, generator=g), dim=0).values.cuda()
+    V = torch.randn(n, 9, generator=g).cuda()
+    mauna = _core(_expr_cases()[-1][1])
+    worst = _worse(worst, _k3_check(mauna, x, x, V, "mauna", f64=True))
+    x1 = torch.rand(n1, 1, generator=g).cuda()
+    x2 = torch.rand(n2, 1, generator=g).cuda()
+    for name, per in _sharp_per_cases():
+        for r in (1, 9):
+            V = torch.randn(n2, r, generator=g).cuda()
+            worst = _worse(worst, _k3_check(per, x1, x2, V, name, f64=True))
+    return worst
+
+
+def _sharp_per_cases():
+    """PER where its float32 phase π·man/p is not accurate enough (the
+    kernels reduce it in float64): at its defaults (ℓ = p = range/10), at
+    ℓ's lower bound 5·range/n and at the period's lower bound 10·range/n
+    (n = 100k), where the phase reaches 3e4 rad."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    return [(name, _with_params(gpt.PeriodicKernel(scaled=True),
+                                {"lengthscale": ls, "period": p,
+                                 "variance": 1.0}))
+            for name, ls, p in (("per at its defaults", 0.1, 0.1),
+                                ("per at ℓ = 5e-5", 5.0 / N_MAIN, 0.1),
+                                ("per at period 1e-4", 1.0, 10.0 / N_MAIN))]
+
+
+def _param_arrays(kernel):
+    """(label, slice of the packed vector) per parameter array."""
+    from gaussianprocessfundamentals_tpu_torch.ops.expr import layout
+
+    return [(f"{kind}{i}.{name}", slice(off, off + sz))
+            for i, (kind, slots, _) in enumerate(layout(kernel))
+            for name, (off, sz) in slots.items()]
+
+
+def _k4_check(kernel, x1, x2, U, W, tag, rtol, f64=False) -> tuple:
+    """K4 against its plain version (run in float64 with ``f64``): per
+    parameter array, max|diff| / max|ref| within ``rtol``. Returns the
+    largest absolute and relative differences."""
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
+        expr_lowrank_vjp_cross,
+    )
+    from gaussianprocessfundamentals_tpu_torch.ops.expr import (
+        plain_expr_lowrank_vjp_cross,
+    )
+
+    got = expr_lowrank_vjp_cross(kernel, x1, x2, U, W).double()
+    torch.cuda.synchronize()
+    ref32 = plain_expr_lowrank_vjp_cross(kernel, x1, x2, U, W).double()
+    ref = ref32
+    if f64:
+        ref = plain_expr_lowrank_vjp_cross(_f64(kernel), x1.double(),
+                                           x2.double(), U.double(), W.double())
+    torch.cuda.synchronize()
+    rels, worst_abs = [], 0.0
+    for label, sl in _param_arrays(kernel):
+        diff = float((got[sl] - ref[sl]).abs().max())
+        rels.append((label, diff / max(float(ref[sl].abs().max()), 1e-30),
+                     float((ref32[sl] - ref[sl]).abs().max())
+                     / max(float(ref[sl].abs().max()), 1e-30)))
+        worst_abs = max(worst_abs, diff)
+    worst_rel = max(r for _, r, _ in rels)
+    ok = bool(torch.isfinite(got).all()) and worst_rel <= rtol
+    detail = " ".join(f"{lab} {r:.1e}" + (f" (plain {p:.1e})" if f64 else "")
+                      for lab, r, p in rels)
+    log(f"[k4] {tag} n1={x1.shape[0]} n2={x2.shape[0]} r={U.shape[1]} vs "
+        f"plain{' f64' if f64 else ''}: {detail} (limit {rtol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    return worst_abs, worst_rel, ok
+
+
+def phase_k4_check() -> tuple:
+    """The expressions of phase 11 at r = 1, 17 and 273 with the JAX gate's
+    zero-mean cotangent (U ~ N(0, 1)/n1, W ~ N(0, 1)) against the float32
+    plain version, and at r = 273 against the float64 plain version; the
+    sharp PER cases at r = 1, 17 and 273 against the float64 plain version
+    only (the float32 one is not accurate there)."""
+    g = torch.Generator().manual_seed(12)
+    n1, n2 = 3000, 5001
+    worst, failed = (0.0, 0.0), []
+    for name, kernel, d in _expr_cases():
+        core = _core(kernel)
+        x1 = torch.rand(n1, d, generator=g).cuda()
+        x2 = torch.rand(n2, d, generator=g).cuda()
+        for r in (1, 17, R_MAIN):
+            U = (torch.randn(n1, r, generator=g) / n1).cuda()
+            W = torch.randn(n2, r, generator=g).cuda()
+            a, rel, ok = _k4_check(core, x1, x2, U, W, name, K4_RTOL)
+            worst = _worse(worst, (a, rel))
+            failed += [] if ok else [f"{name} r={r}"]
+        a, rel, ok = _k4_check(core, x1, x2, U, W, name, K4_RTOL_F64, f64=True)
+        worst = _worse(worst, (a, rel))
+        failed += [] if ok else [f"{name} r={R_MAIN} f64"]
+    x1 = torch.rand(n1, 1, generator=g).cuda()
+    x2 = torch.rand(n2, 1, generator=g).cuda()
+    for name, per in _sharp_per_cases():
+        for r in (1, 17, R_MAIN):
+            U = (torch.randn(n1, r, generator=g) / n1).cuda()
+            W = torch.randn(n2, r, generator=g).cuda()
+            a, rel, ok = _k4_check(per, x1, x2, U, W, name, K4_RTOL_F64,
+                                   f64=True)
+            worst = _worse(worst, (a, rel))
+            failed += [] if ok else [f"{name} r={r} f64"]
+    if failed:
+        raise RuntimeError(f"K4 disagrees with its plain version: {failed}")
+    return worst
+
+
+def phase_expr_oracle() -> None:
+    """One streamed iterative NLL + gradient of the Mauna Loa composite at
+    n = 4096 (K3 and K4 forced, 64 probes) against the float64 dense NLL
+    and its gradient: NLL within 2%, the gradient vector within 15% in
+    relative L2 norm (tests/test_iterative.py:88-90)."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
+        expr_gram_matvec_cross,
+        expr_lowrank_vjp_cross,
+    )
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+
+    x, y, _, _ = _mauna_data(MAUNA_N_ORACLE)
+    kernel = _with_params(_mauna_kernel(), MAUNA_PARAMS)
+    expr_gram_matvec_cross.launches = 0
+    expr_lowrank_vjp_cross.launches = 0
+    nll, grad, g_noise, resid = gpt.iterative_nll_and_grad(
+        kernel, x, y, NOISE, torch.Generator(device="cuda").manual_seed(0),
+        num_probes=64, max_iters=100, tol=1e-4, precond_m=256,
+        materialize=False)
+    torch.cuda.synchronize()
+    k3, k4 = expr_gram_matvec_cross.launches, expr_lowrank_vjp_cross.launches
+    k64 = _f64(kernel)
+    x64, y64 = x.double(), y.double()
+    with k64.differentiable() as p:
+        ref = chol.nll(k64.gram(x64, x64), y64, NOISE, 0.0)
+        g_ref = torch.autograd.grad(ref, tree_leaves(p))
+    ref = ref.detach()
+    got = torch.cat([t.double().reshape(-1) for t in tree_leaves(grad)])
+    want = torch.cat([t.reshape(-1) for t in g_ref])
+    nll_rel = abs(float(nll) - float(ref)) / abs(float(ref))
+    g_rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    ok = nll_rel <= 0.02 and g_rel <= 0.15 and k4 == 1 and k3 > 0
+    log(f"[expr-oracle] Mauna composite n={MAUNA_N_ORACLE} streamed, 64 probes: "
+        f"nll {float(nll):.4f} vs f64 dense {float(ref):.4f} (rel "
+        f"{nll_rel:.2e}, limit 0.02); gradient rel L2 {g_rel:.2e} (limit 0.15) "
+        f"over {got.numel()} parameters; max rel CG resid "
+        f"{float(resid.max()):.2e}; K3 launches {k3}, K4 launches {k4} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("composite iterative NLL + gradient disagree with "
+                           "the f64 dense oracle, or K4 did not run exactly once")
+
+
+def _mauna_model():
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    return gpt.GaussianProcess(_mauna_kernel(), device="cuda")
+
+
+def _wrappers() -> dict:
+    """The four kernels' wrappers, each with its ``launches`` count."""
+    from gaussianprocessfundamentals_tpu_torch.ops import (
+        cuda_expr,
+        cuda_gram,
+        cuda_lrvjp,
+    )
+
+    return {"K1": cuda_gram.fused_gram_matvec_cross,
+            "K2": cuda_lrvjp.fused_lowrank_vjp_cross,
+            "K3": cuda_expr.expr_gram_matvec_cross,
+            "K4": cuda_expr.expr_lowrank_vjp_cross}
+
+
+def _launch_counts() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def _zero_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def phase_expr_fit() -> dict:
+    """The composite training main path: ``GaussianProcess(Mauna Loa
+    composite).fit(method="auto")`` at N = 100,000 with the knobs of the SE
+    fit story (10 Adam steps), every CG matvec through K3 and every gradient
+    through K4."""
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+
+    x, y, xt, truth = _mauna_data(N_MAIN, T_MAIN)
+    gp = _mauna_model()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = gp.fit(x, y, **FIT_KWARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = [float(v) for v in res.history]
+    frozen = res.diagnostics["frozen_frac"]
+    fitted = [round(float(v), 6) for t in tree_leaves(res.kernel_params)
+              for v in t.reshape(-1)]
+    log(f"[expr-fit] N={N_MAIN} Mauna composite {gp.kernel} fit(method='auto'), "
+        f"{FIT_STEPS} Adam steps: wall {wall:.3f} s, {wall / FIT_STEPS:.3f} "
+        f"s/step, launches {counts}, peak mem {peak / 1e9:.3f} GB")
+    log(f"[expr-fit] NLL history {[float(f'{v:.2f}') for v in hist]}; "
+        f"frozen_frac {frozen}; noise {float(res.noise):.3e}; fitted "
+        f"parameters (pack order) {fitted}")
+    checks = {
+        f"K3 launches == 25 x {FIT_STEPS}": counts["K3"] == 25 * FIT_STEPS,
+        f"K4 launches == {FIT_STEPS}": counts["K4"] == FIT_STEPS,
+        "no K1/K2 launch": counts["K1"] == 0 and counts["K2"] == 0,
+        "NLL history finite": all(np.isfinite(hist)),
+        "last NLL below first": hist[-1] < hist[0],
+        "not every step frozen": frozen < 1.0,
+        "peak memory <= 8 GB": peak <= 8e9,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"composite training path checks failed: {failed}")
+    return {"gp": gp, "counts": counts, "x": x, "y": y, "xt": xt,
+            "truth": truth}
+
+
+def phase_expr_serve(fit: dict) -> dict:
+    """The composite serving main path: ``.posterior`` of the fitted
+    composite at 1,000 points midway between training points (the chunked
+    mBCG route), every CG matvec through K3."""
+    gp, xt, truth = fit["gp"], fit["xt"], fit["truth"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    post = gp.posterior(xt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = post.solve_stats
+    rmse = float(torch.sqrt(torch.mean((post.mean - truth) ** 2)))
+    log(f"[expr-serve] N={N_MAIN} t={T_MAIN} posterior(method='auto'): wall "
+        f"{wall:.3f} s, CG iters {stats['iters']}, true rel resid "
+        f"{[float(f'{r:.3e}') for r in stats['rel_resid']]}, launches "
+        f"{counts}, peak mem {peak / 1e9:.3f} GB, mean RMSE vs the noise-free "
+        f"series {rmse:.5f} (normalised units), var range "
+        f"[{float(post.var.min()):.3e}, {float(post.var.max()):.3e}]")
+    checks = {
+        "K3 launched, no K1": counts["K3"] > 0 and counts["K1"] == 0,
+        "finite, shape": bool(torch.isfinite(post.mean).all()
+                              and torch.isfinite(post.var).all())
+        and tuple(post.mean.shape) == (T_MAIN,),
+        "var >= 0": bool((post.var >= 0).all()),
+        "true rel resid <= 1e-3 on every solve": max(stats["rel_resid"]) <= 1e-3,
+        "mean RMSE <= 0.05": rmse <= 0.05,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"composite serving path checks failed: {failed}")
+    return {"counts": counts}
+
+
+def _special_calls(kernel, template: str) -> int:
+    """Special-function calls per pair that the function needs: one exp for
+    the exponential leaves under one Product together (exp(a)·exp(b) =
+    exp(a + b)) and one for each other exponential leaf (SE, PER, Matérn,
+    RQ), one sin per PER (and one cos for K4's period derivative), one log
+    per RQ. IEEE sinf and cosf run their range reduction and polynomial on
+    the multiply-add pipe, not the special-function unit: pricing each as
+    one special-function call keeps the bound below their real cost."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.kernels.operators import Product
+
+    exponential = (gpt.SquaredExponentialKernel, gpt.PeriodicKernel,
+                   gpt.Matern32Kernel, gpt.Matern52Kernel,
+                   gpt.RationalQuadraticKernel)
+
+    def count(node) -> int:
+        if not node.terms:
+            per = type(node) is gpt.PeriodicKernel
+            return (int(isinstance(node, exponential))
+                    + per * (2 if template == "vjp" else 1)
+                    + int(type(node) is gpt.RationalQuadraticKernel))
+        if type(node) is not Product:
+            return sum(count(c) for c in node.terms)
+        folded = [c for c in node.terms
+                  if not c.terms and isinstance(c, exponential)]
+        return (sum(count(c) for c in node.terms) - len(folded)
+                + min(1, len(folded)))
+
+    return count(kernel)
+
+
+def _expr_bound(n: int, d: int, r: int, in_bytes: int, out_bytes: int,
+                n_special: int):
+    """(bound_ms, bound_by) of K3 or K4 over n² pairs: the larger of the
+    bytes over the memory rate, 2·n²·(r + d) float32 operations over their
+    peak, and the expression's special-function calls per pair over the
+    special-function rate."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    t_ops = max(2.0 * n * n * (r + d) / F32_OPS_PER_S,
+                n * n * n_special / EXP_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def phase_expr_time(x) -> dict:
+    """K3 at the fit's and the posterior's widths and K4 at the fit's rank,
+    at n = 100k: each first checked against its plain version on the same
+    inputs (K3 within K3_RTOL; K4 within K4_RTOL, and within K4_RTOL_F64 of
+    the float64 plain version), then timed in turns with it, beside its
+    bound."""
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
+        expr_gram_matvec_cross,
+        expr_lowrank_vjp_cross,
+    )
+    from gaussianprocessfundamentals_tpu_torch.ops.expr import (
+        pack_params,
+        plain_expr_gram_matvec_cross,
+        plain_expr_lowrank_vjp_cross,
+    )
+
+    core = _core(_with_params(_mauna_kernel(), MAUNA_PARAMS))
+    pv = pack_params(core)
+    g = torch.Generator().manual_seed(13)
+    out = {"k3_worst": (0.0, 0.0), "k4_worst": (0.0, 0.0)}
+    n_k3 = _special_calls(core, "matvec")
+    for r, reps in ((1, 5), (R_CG, 5), (256, 1)):
+        V = torch.randn(N_MAIN, r, generator=g).cuda()
+        out["k3_worst"] = _worse(out["k3_worst"],
+                                 _k3_check(core, x, x, V, "mauna"))
+        ms, plain_ms = _abba_ms(
+            lambda: expr_gram_matvec_cross(core, x, x, V, pv),
+            lambda: plain_expr_gram_matvec_cross(core, x, x, V), reps)
+        bound_ms, bound_by = _expr_bound(N_MAIN, 1, r, 4 * N_MAIN * (2 + r),
+                                         4 * N_MAIN * r, n_k3)
+        log(f"[time] K3 Mauna r={r} n={N_MAIN}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
+            f"{n_k3} special-function calls per pair): "
+            f"{100 * bound_ms / ms:.1f}% of the bound")
+        out[f"k3_{r}"] = (ms, plain_ms, bound_ms, bound_by)
+    # zero-mean cotangent, as the fit's
+    U = torch.randn(N_MAIN, R_MAIN, generator=g).cuda()
+    W = torch.randn(N_MAIN, R_MAIN, generator=g).cuda()
+    for f64, rtol in ((False, K4_RTOL), (True, K4_RTOL_F64)):
+        a, rel, ok = _k4_check(core, x, x, U, W, "mauna", rtol, f64=f64)
+        out["k4_worst"] = _worse(out["k4_worst"], (a, rel))
+        if not ok:
+            raise RuntimeError(f"K4 disagrees with its plain version at the "
+                               f"main path's shapes (float64: {f64})")
+    n_k4 = _special_calls(core, "vjp")
+    ms, plain_ms = _abba_ms(
+        lambda: expr_lowrank_vjp_cross(core, x, x, U, W, pv),
+        lambda: plain_expr_lowrank_vjp_cross(core, x, x, U, W), 1)
+    bound_ms, bound_by = _expr_bound(N_MAIN, 1, R_MAIN,
+                                     4 * 2 * N_MAIN * (1 + R_MAIN) + 4 * pv.numel(),
+                                     4 * pv.numel(), n_k4)
+    log(f"[time] K4 Mauna r={R_MAIN} n={N_MAIN}: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {n_k4} "
+        f"special-function calls per pair): {100 * bound_ms / ms:.1f}% of the "
+        f"bound ({2 * N_MAIN * N_MAIN * R_MAIN / (ms * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s in the kernel's product)")
+    out["k4"] = (ms, plain_ms, bound_ms, bound_by)
+    return out
+
+
+def _kernel_entry(name, source, replaces, by_path, worst, times) -> dict:
+    ms, plain_ms, bound_ms, bound_by = times
+    return {"name": name, "route": "cuda",
+            "source": f"gaussianprocessfundamentals_tpu_torch/csrc/{source}",
+            "replaces": f"gaussianprocessfundamentals_tpu/ops/{replaces}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": worst[0], "max_rel_err": worst[1], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def main() -> None:
@@ -629,42 +1223,44 @@ def main() -> None:
     fit_res = phase_fit()
     fit_time = phase_fit_time(fit_res["x"])
     phase_profile(fit_res["x"], fit_res["y"])
+    k3_worst = phase_k3_check()
+    k4_worst = phase_k4_check()
+    phase_expr_oracle()
+    expr_fit = phase_expr_fit()
+    expr_serve = phase_expr_serve(expr_fit)
+    expr_time = phase_expr_time(expr_fit["x"])
+    _profile_step(_mauna_model, expr_fit["x"], expr_fit["y"], "expr-profile")
     k1_worst = _worse(_worse(k1_worst, main_res["worst"]), fit_time["k1_worst"])
     k2_worst = _worse(k2_worst, fit_time["worst"])
-    ms, plain_ms = main_res["times"][256]
-    k1_bound_ms, k1_bound_by = _bound(
-        N_MAIN, N_MAIN, 1, 256, 4 * N_MAIN * (2 + 256), 4 * N_MAIN * 256)
+    k3_worst = _worse(k3_worst, expr_time["k3_worst"])
+    k4_worst = _worse(k4_worst, expr_time["k4_worst"])
+    paths = {"posterior": main_res["counts"], "fit": fit_res["counts"],
+             "composite_fit": expr_fit["counts"],
+             "composite_posterior": expr_serve["counts"]}
+    by_path = {k: {p: c[k] for p, c in paths.items()}
+               for k in ("K1", "K2", "K3", "K4")}
+    k1_bound = _bound(N_MAIN, N_MAIN, 1, 256, 4 * N_MAIN * (2 + 256),
+                      4 * N_MAIN * 256)
+    k3 = _kernel_entry("expr_gram_matvec_cross", "expr_matvec.cu",
+                       "pallas_expr.py:394", by_path["K3"], k3_worst,
+                       expr_time["k3_256"])
+    k3["ms_by_width"] = {str(r): expr_time[f"k3_{r}"][0] for r in (1, R_CG, 256)}
+    k3["bound_ms_by_width"] = {str(r): expr_time[f"k3_{r}"][2]
+                               for r in (1, R_CG, 256)}
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "fused_gram_matvec_cross",
-        "route": "cuda",
-        "source": "gaussianprocessfundamentals_tpu_torch/csrc/gram_matvec.cu",
-        "replaces": "gaussianprocessfundamentals_tpu/ops/pallas_gram.py:252",
-        "launches": main_res["launches"] + fit_res["k1"],
-        "launches_by_path": {"posterior": main_res["launches"],
-                             "fit": fit_res["k1"]},
-        "max_abs_err": k1_worst[0],
-        "max_rel_err": k1_worst[1],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": k1_bound_ms,
-        "bound_by": k1_bound_by,
-        "library_ms": None,
-    }, {
-        "name": "fused_lowrank_vjp_cross",
-        "route": "cuda",
-        "source": "gaussianprocessfundamentals_tpu_torch/csrc/lowrank_vjp.cu",
-        "replaces": "gaussianprocessfundamentals_tpu/ops/pallas_gram.py:398",
-        "launches": fit_res["k2"],
-        "launches_by_path": {"posterior": 0, "fit": fit_res["k2"]},
-        "max_abs_err": k2_worst[0],
-        "max_rel_err": k2_worst[1],
-        "ms": fit_time["ms"],
-        "plain_ms": fit_time["plain_ms"],
-        "bound_ms": fit_time["bound_ms"],
-        "bound_by": fit_time["bound_by"],
-        "library_ms": None,
-    }]}))
+    log(json.dumps({"kernels": [
+        _kernel_entry("fused_gram_matvec_cross", "gram_matvec.cu",
+                      "pallas_gram.py:252", by_path["K1"], k1_worst,
+                      main_res["times"][256] + k1_bound),
+        _kernel_entry("fused_lowrank_vjp_cross", "lowrank_vjp.cu",
+                      "pallas_gram.py:398", by_path["K2"], k2_worst,
+                      (fit_time["ms"], fit_time["plain_ms"],
+                       fit_time["bound_ms"], fit_time["bound_by"])),
+        k3,
+        _kernel_entry("expr_lowrank_vjp_cross", "expr_vjp.cu",
+                      "pallas_expr.py:481", by_path["K4"], k4_worst,
+                      expr_time["k4"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

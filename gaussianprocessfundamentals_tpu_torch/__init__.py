@@ -1,13 +1,17 @@
 """gaussianprocessfundamentals_tpu_torch — the PyTorch/CUDA port of the GP engine.
 
-Exact GPs with SE and Matérn kernels and constant/linear means, fitted and
-served at any n. Below 8k training rows ``fit`` runs L-BFGS on the dense
+Exact GPs with composite kernels (Sum and Product of SE, periodic, linear,
+Matérn, rational-quadratic, constant and white-noise leaves) and
+constant/linear means, fitted and served at any n. Below 8k training rows ``fit`` runs L-BFGS on the dense
 Cholesky NLL; from there on Adam over the matrix-free iterative NLL (mBCG
 solves, SLQ log-determinant, a low-rank gradient cotangent). Posteriors are
 dense below 20k rows and matrix-free chunked mBCG from there on. Above 40k
 rows K is never formed: its products run in hand-written CUDA kernels on the
 GPU, Gram·V in ``csrc/gram_matvec.cu`` and the gradient's low-rank
-contraction in ``csrc/lowrank_vjp.cu``, and in plain PyTorch on the CPU.
+contraction in ``csrc/lowrank_vjp.cu`` for SE and Matérn leaves, and for
+any other expression in kernels generated from its AST
+(``ops/expr_codegen.py`` into ``csrc/expr_matvec.cu`` and
+``csrc/expr_vjp.cu``); in plain PyTorch on the CPU.
 Checkpoints are the JAX package's format, both ways (``save``/``load``).
 
 Quick start::
@@ -29,10 +33,20 @@ from gaussianprocessfundamentals_tpu_torch.kernels.base import (
     kernel_from_dict,
 )
 from gaussianprocessfundamentals_tpu_torch.kernels.leaves import (
+    ConstantKernel,
+    LinearKernel,
     Matern32Kernel,
     Matern52Kernel,
+    PeriodicKernel,
+    RationalQuadraticKernel,
     RBFKernel,
     SquaredExponentialKernel,
+    WhiteNoiseKernel,
+)
+from gaussianprocessfundamentals_tpu_torch.kernels.operators import (
+    Operator,
+    Product,
+    Sum,
 )
 from gaussianprocessfundamentals_tpu_torch.means.functions import (
     ConstantMean,

@@ -95,8 +95,9 @@ def make_nll(kernel, mean: MeanFunction, x, y,
 
 def bounds_projection(kernel, xrange, n: int) -> Callable:
     """A projection of the unconstrained tree into the kernel's box bounds
-    (clipped in log space for positive parameters). Mean and noise entries
-    are untouched, as in the JAX package."""
+    (clipped in log space for positive parameters), over nested operator
+    trees too. Mean and noise entries are untouched, as in the JAX
+    package."""
     lo, hi = kernel.bounds(xrange, n)
     kpos = kernel.positivity()
 
@@ -105,8 +106,8 @@ def bounds_projection(kernel, xrange, n: int) -> Callable:
         with np.errstate(divide="ignore"):
             return np.log(b) if p else b
 
-    lo_u = {k: to_u(lo[k], kpos[k]) for k in kpos}
-    hi_u = {k: to_u(hi[k], kpos[k]) for k in kpos}
+    lo_u = tree_map(to_u, lo, kpos)
+    hi_u = tree_map(to_u, hi, kpos)
 
     def project(u):
         return {**u, "kernel": clip_to_bounds(u["kernel"], lo_u, hi_u)}

@@ -7,7 +7,10 @@ named as in the JAX package (``lengthscale``, ``variance``, ``c``), so
 ``x1: [..., n, d]``, ``x2: [..., m, d]`` to ``[..., n, m]``.
 
 The AST serialises to the same JSON as the JAX package (``to_dict`` /
-``kernel_from_dict``), so one spec builds a kernel in either package.
+``kernel_from_dict``), so one spec builds a kernel in either package; ``+``
+and ``*`` build ``Sum`` and ``Product`` nodes (:mod:`.operators`), flattening
+nested operators of the same type as the JAX package's ``_merge`` does
+(``:200-209``).
 """
 from __future__ import annotations
 
@@ -87,6 +90,35 @@ class HyperparameterModule(nn.Module):
             self.set_params(before)
 
 
+class ChildParams:
+    """Parameters of a node whose children hold their own (the kernel
+    operators and ``MeanSum``): the params tree is ``{"children": (p0, p1,
+    ...)}``, one tree per child in ``terms``, as the JAX package's."""
+
+    def has_params(self):
+        return all(c.has_params() for c in self.terms)
+
+    def get_params(self):
+        return {"children": tuple(c.get_params() for c in self.terms)}
+
+    def set_params(self, params):
+        if set(params) != {"children"} or len(params["children"]) != len(self.terms):
+            raise KeyError(
+                f"{type(self).__name__} of {len(self.terms)} children takes "
+                "{'children': (p0, ...)} with one params tree per child"
+            )
+        for c, p in zip(self.terms, params["children"]):
+            c.set_params(p)
+        return self
+
+    def init_params(self, xrange=None, n: int = 0, generator=None, dtype=None):
+        return {"children": tuple(c.init_params(xrange, n, generator, dtype)
+                                  for c in self.terms)}
+
+    def positivity(self):
+        return {"children": tuple(c.positivity() for c in self.terms)}
+
+
 class Kernel(HyperparameterModule):
     """Abstract kernel-expression node.
 
@@ -95,6 +127,7 @@ class Kernel(HyperparameterModule):
     """
 
     _AST_FIELDS: Tuple[str, ...] = ()
+    _SEP = ""  # an operator's infix in str() and canonical_str()
 
     # --- evaluation ------------------------------------------------------
     def gram(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -122,26 +155,54 @@ class Kernel(HyperparameterModule):
     def x_rescale(self, params: dict, shift, scale) -> dict:
         raise NotImplementedError
 
+    # --- structure -------------------------------------------------------
+    @property
+    def terms(self) -> Tuple["Kernel", ...]:
+        """The child expressions (none for a leaf). The JAX package's
+        ``children``: that name is ``nn.Module``'s own iterator."""
+        return ()
+
+    # --- algebra sugar ---------------------------------------------------
+    def __add__(self, other: "Kernel") -> "Kernel":
+        from gaussianprocessfundamentals_tpu_torch.kernels.operators import Sum
+
+        return Sum(_merge(self, other, Sum))
+
+    def __mul__(self, other: "Kernel") -> "Kernel":
+        from gaussianprocessfundamentals_tpu_torch.kernels.operators import (
+            Product,
+        )
+
+        return Product(_merge(self, other, Product))
+
     # --- serialisation ---------------------------------------------------
     def to_dict(self) -> dict:
         d = {"type": type(self).__name__}
         for name in self._AST_FIELDS:
             d[name] = getattr(self, name)
+        if self.terms:
+            d["children"] = [c.to_dict() for c in self.terms]
         return d
 
     def __str__(self) -> str:
         return type(self).__name__.replace("Kernel", "")
 
     def canonical_str(self) -> str:
-        """Canonical string form (``kernels/base.py:156`` of the JAX
-        package); a leaf is its name, with ``~s`` when scaled."""
+        """Canonical string form (``kernels/base.py:156-174`` of the JAX
+        package): a leaf is its name, with ``~s`` when scaled; a Sum or
+        Product sorts its children's forms, so expressions equal up to the
+        order of their arguments share one string. Not a key for anything
+        that depends on the parameter order."""
         name = type(self).__name__.replace("Kernel", "")
-        return name + ("~s" if getattr(self, "scaled", False) else "")
+        if not self.terms:
+            return name + ("~s" if getattr(self, "scaled", False) else "")
+        parts = sorted(c.canonical_str() for c in self.terms)
+        return "(" + self._SEP.join(parts) + ")"
 
 
 def kernel_from_dict(d: dict) -> Kernel:
-    """Rebuild a kernel from :meth:`Kernel.to_dict` output (either
-    package's). Composite nodes are not ported yet."""
+    """Rebuild a kernel tree from :meth:`Kernel.to_dict` output (either
+    package's)."""
     d = dict(d)
     name = d.pop("type")
     if name not in KERNEL_REGISTRY:
@@ -149,7 +210,17 @@ def kernel_from_dict(d: dict) -> Kernel:
             f"kernel type {name!r} is not ported to the PyTorch package yet "
             f"(ported: {sorted(KERNEL_REGISTRY)})"
         )
+    if "children" in d:
+        d["children"] = tuple(kernel_from_dict(c) for c in d["children"])
     return KERNEL_REGISTRY[name](**d)
+
+
+def _merge(a: Kernel, b: Kernel, op_cls) -> Tuple[Kernel, ...]:
+    """Flatten nested same-type operators."""
+    out = []
+    for k in (a, b):
+        out.extend(k.terms if type(k) is op_cls else (k,))
+    return tuple(out)
 
 
 def _dt(dtype):

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from gaussianprocessfundamentals_tpu_torch.kernels.base import (
+    ChildParams,
     HyperparameterModule,
     _dt,
 )
@@ -136,7 +137,7 @@ class LinearMean(MeanFunction):
 
 
 @register_mean
-class MeanSum(MeanFunction):
+class MeanSum(ChildParams, MeanFunction):
     """m = Σᵢ mᵢ; its params tree is ``{"children": (p0, p1, ...)}`` and
     each child module holds its own."""
 
@@ -146,34 +147,11 @@ class MeanSum(MeanFunction):
         # nn.Module's own iterator over submodules
         self.terms = nn.ModuleList(children)
 
-    def has_params(self):
-        return all(c.has_params() for c in self.terms)
-
-    def get_params(self):
-        return {"children": tuple(c.get_params() for c in self.terms)}
-
-    def set_params(self, params):
-        if set(params) != {"children"} or len(params["children"]) != len(self.terms):
-            raise KeyError(
-                f"MeanSum of {len(self.terms)} terms takes "
-                "{'children': (p0, ...)} with one params tree per term"
-            )
-        for c, p in zip(self.terms, params["children"]):
-            c.set_params(p)
-        return self
-
     def mean(self, x):
         out = self.terms[0].mean(x)
         for c in self.terms[1:]:
             out = out + c.mean(x)
         return out
-
-    def init_params(self, xrange=None, n=0, generator=None, dtype=None):
-        return {"children": tuple(c.init_params(xrange, n, generator, dtype)
-                                  for c in self.terms)}
-
-    def positivity(self):
-        return {"children": tuple(c.positivity() for c in self.terms)}
 
     def to_dict(self):
         return {"type": "MeanSum", "dim": self.dim,

@@ -10,8 +10,10 @@ what bounds it and how it is laid out.
 Routing is by the device of the tensors, never by a setting:
 
 * CPU tensors take the plain row-panel version (:mod:`.gram_matvec`);
-* CUDA tensors launch the kernel, or raise when the kernel does not cover
-  the covariance (composites and Matérn at d > 1 are K3's, not ported yet).
+* CUDA tensors launch the kernel for the leaves it covers (SE at any d,
+  Matérn at d = 1, scalar lengthscale or ARD SE by scaling x); the router
+  hands everything else to the composite-expression kernel K3
+  (:mod:`.cuda_expr`), as ``pallas_gram.py:546-553, 603-609`` do.
 
 Forward-only, as the TPU kernel was: the iterative path never
 differentiates through a CG matvec, so the wrapper refuses inputs that
@@ -30,6 +32,9 @@ from gaussianprocessfundamentals_tpu_torch.kernels.leaves import (
     Matern52Kernel,
     SquaredExponentialKernel,
 )
+from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
+    expr_matvec_cross_for,
+)
 from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
     streamed_gram_matvec_cross,
 )
@@ -42,9 +47,10 @@ _LEAF = {"se": SquaredExponentialKernel, "mat32": Matern32Kernel,
 # unchanged), Matérn at d = 1.
 _MAX_D = 8
 
-_K3_MISSING = (
-    "expr_gram_matvec_cross (K3, ops/pallas_expr.py:394 of the JAX package) "
-    "is not ported to CUDA yet"
+_K3_ROUTE = (
+    "K1 covers SE and Matérn at d = 1; route other kernels through "
+    "fused_matvec_cross_for, which hands them to K3 "
+    "(ops.cuda_expr.expr_gram_matvec_cross)"
 )
 
 
@@ -128,7 +134,7 @@ def fused_gram_matvec_cross(x1, x2, V, lengthscale, variance=1.0,
             f"V {tuple(V.shape)}"
         )
     if kind != "se" and d != 1:
-        raise NotImplementedError(f"Matérn at d={d} > 1: {_K3_MISSING}")
+        raise NotImplementedError(f"Matérn at d={d} > 1: {_K3_ROUTE}")
     if d > _MAX_D:
         raise NotImplementedError(
             f"the CUDA Gram·V kernel covers d <= {_MAX_D}, got d={d}"
@@ -183,10 +189,11 @@ def _k1_kind(kernel, d: int):
 
 def fused_matvec_cross_for(kernel, x1, x2):
     """A ``V -> K(x1, x2) @ V`` closure for the device of x1: the plain
-    row-panel version on the CPU, the CUDA kernel on a card. Raises on a
-    card when the kernel does not cover the covariance.
+    row-panel version on the CPU; on a card K1 for the leaves it covers and
+    K3 (:func:`.cuda_expr.expr_matvec_cross_for`) for any other expression,
+    which raises when neither covers the covariance.
 
-    The hyperparameters are read to the host once here, not per call.
+    K1's hyperparameters are read to the host once here, not per call.
     ARD SE is covered by scaling x by 1/ℓ first, as ``gram`` does.
     """
     if x1.device.type == "cpu":
@@ -195,9 +202,7 @@ def fused_matvec_cross_for(kernel, x1, x2):
         raise NotImplementedError(f"no Gram·V route for device {x1.device}")
     kind = _k1_kind(kernel, x1.shape[-1])
     if kind is None:
-        raise NotImplementedError(
-            f"{kernel.canonical_str()} at d={x1.shape[-1]}: {_K3_MISSING}"
-        )
+        return expr_matvec_cross_for(kernel, x1, x2)
     ls = kernel.lengthscale.detach()
     if ls.ndim > 0:
         x1, x2, ls_f = x1 / ls, x2 / ls, 1.0

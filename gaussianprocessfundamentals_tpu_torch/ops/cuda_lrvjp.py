@@ -12,9 +12,11 @@ Routing is by the device of the tensors, as for K1 (:mod:`.cuda_gram`):
 
 * CPU tensors take the plain streamed autograd version
   (:func:`..ops.gram_matvec.lowrank_gram_vjp_cross`);
-* CUDA tensors launch the kernel, or raise when it does not cover the
-  covariance: ARD lengthscales, composites and Matérn at d > 1 are K4's,
-  not ported yet.
+* CUDA tensors launch the kernel for the leaves it covers (scalar-
+  lengthscale SE at any d, Matérn at d = 1); the router hands everything
+  else -- ARD lengthscales, Matérn at d > 1, the other leaves and
+  composites -- to the composite-expression kernel K4 (:mod:`.cuda_expr`),
+  as ``pallas_gram.py:504-506, 516-522`` do.
 """
 from __future__ import annotations
 
@@ -36,13 +38,17 @@ from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
     _pad_cols,
     _padded_width,
 )
+from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
+    expr_lowrank_vjp_cross_for,
+)
 from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
     lowrank_gram_vjp_cross,
 )
 
-_K4_MISSING = (
-    "expr_lowrank_vjp_cross (K4, ops/pallas_expr.py:481 of the JAX package) "
-    "is not ported to CUDA yet"
+_K4_ROUTE = (
+    "K2 covers SE and Matérn at d = 1; route other kernels through "
+    "fused_lowrank_vjp_cross_for, which hands them to K4 "
+    "(ops.cuda_expr.expr_lowrank_vjp_cross)"
 )
 
 
@@ -127,7 +133,7 @@ def fused_lowrank_vjp_cross(x1, x2, U, W, lengthscale, variance=1.0,
             f"U {tuple(U.shape)}, W {tuple(W.shape)}"
         )
     if kind != "se" and d != 1:
-        raise NotImplementedError(f"Matérn at d={d} > 1: {_K4_MISSING}")
+        raise NotImplementedError(f"Matérn at d={d} > 1: {_K4_ROUTE}")
     if d > _MAX_D:
         raise NotImplementedError(
             f"the CUDA low-rank VJP kernel covers d <= {_MAX_D}, got d={d}"
@@ -194,11 +200,12 @@ def _k2_kind(kernel, d: int):
 def fused_lowrank_vjp_cross_for(kernel, x1, x2):
     """A ``(U, W) -> grads`` closure for the device of x1, giving the
     gradient of Σ(UWᵀ)∘K(x1, x2) with respect to the kernel's
-    hyperparameters as a dict shaped like its params: the plain streamed
-    autograd version on the CPU, the CUDA kernel on a card. Raises on a
-    card when the kernel does not cover the covariance.
+    hyperparameters as a tree shaped like its params: the plain streamed
+    autograd version on the CPU; on a card K2 for the leaves it covers and
+    K4 (:func:`.cuda_expr.expr_lowrank_vjp_cross_for`) for any other
+    expression, which raises when neither covers the covariance.
 
-    The hyperparameters are read to the host once here, not per call.
+    K2's hyperparameters are read to the host once here, not per call.
     """
     if x1.device.type == "cpu":
         return lambda U, W: lowrank_gram_vjp_cross(kernel, x1, x2, U, W)
@@ -206,10 +213,7 @@ def fused_lowrank_vjp_cross_for(kernel, x1, x2):
         raise NotImplementedError(f"no low-rank VJP route for device {x1.device}")
     kind = _k2_kind(kernel, x1.shape[-1])
     if kind is None:
-        raise NotImplementedError(
-            f"{kernel.canonical_str()} at d={x1.shape[-1]} (ARD lengthscales, "
-            f"composites and Matérn at d > 1 are K4's): {_K4_MISSING}"
-        )
+        return expr_lowrank_vjp_cross_for(kernel, x1, x2)
     dtype = kernel.lengthscale.dtype
     ls = float(kernel.lengthscale.detach())
     var = float(kernel.variance.detach()) if kernel.scaled else 1.0

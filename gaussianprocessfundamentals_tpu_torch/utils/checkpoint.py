@@ -2,7 +2,8 @@
 
 The JAX package saves a fit as ``<path>.json`` (the kernel and mean ASTs,
 the noise) and ``<path>.npz`` (the hyperparameters, keyed by their pytree
-path: ``k:['lengthscale']``, ``m:['children']/[0]/['c']``;
+path: ``k:['lengthscale']``,
+``k:['children']/[0]/['children']/[1]/['period']``, ``m:['children']/[0]/['c']``;
 ``utils/checkpoint.py:36-94`` there). :func:`load` reads both with ``json``
 and ``numpy`` only and installs the values in the port's modules;
 :func:`save` writes the same two files from the modules, so a fit from
@@ -40,12 +41,25 @@ def _path(key: str) -> list:
 
 
 def _tuples(node):
-    """Dicts keyed 0..k-1 (sequence positions in a path) become tuples."""
+    """Dicts keyed by sequence positions in a path become tuples; a position
+    with no path (a child with no parameters) becomes an empty dict."""
     if not isinstance(node, dict):
         return node
     if node and all(isinstance(k, int) for k in node):
-        return tuple(_tuples(node[i]) for i in range(len(node)))
+        return tuple(_tuples(node.get(i, {})) for i in range(max(node) + 1))
     return {k: _tuples(v) for k, v in node.items()}
+
+
+def _like(template, tree):
+    """``tree`` padded to the operator structure of ``template`` (a module's
+    params tree): children after the last one with parameters have no path
+    in a checkpoint."""
+    if isinstance(template, dict):
+        return {k: _like(v, tree[k]) for k, v in template.items()}
+    if isinstance(template, (tuple, list)):
+        return tuple(_like(t, tree[i] if i < len(tree) else {})
+                     for i, t in enumerate(template))
+    return tree
 
 
 def tree_from_numpy(params: dict, device=None, dtype=None) -> dict:
@@ -69,8 +83,10 @@ def tree_from_numpy(params: dict, device=None, dtype=None) -> dict:
 
 def params_from_numpy(module, params: dict, device=None, dtype=None):
     """Install the JAX package's parameters (see :func:`tree_from_numpy`)
-    in a kernel or mean module. Returns the module."""
-    return module.set_params(tree_from_numpy(params, device, dtype))
+    in a kernel or mean module, composites included. Returns the
+    module."""
+    return module.set_params(
+        _like(module.get_params(), tree_from_numpy(params, device, dtype)))
 
 
 def _flatten(tree) -> dict:

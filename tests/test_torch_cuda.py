@@ -1,17 +1,27 @@
-"""The CUDA kernels on the card: K1 (Gram·V) and K2 (the low-rank-cotangent
-gradient). Marked ``cuda``: skipped where no GPU is present, run on one with
+"""The CUDA kernels on the card: K1 (Gram·V), K2 (the low-rank-cotangent
+gradient) and the composite-expression kernels K3 and K4. Marked ``cuda``:
+skipped where no GPU is present, run on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 (``--noconftest``: the suite's conftest pins JAX, which the GPU machine
 need not have; this file imports no JAX). K1's tolerances are those of
-``test_torch_gram_matvec.py``, K2's those of ``test_torch_lowrank_vjp.py``.
+``test_torch_gram_matvec.py``, K2's those of ``test_torch_lowrank_vjp.py``,
+K3's and K4's those of ``chip_smoke.py`` phases 11 and 12.
 """
+import copy
+
 import pytest
 import torch
 
 import gaussianprocessfundamentals_tpu_torch as gpt
-from gaussianprocessfundamentals_tpu_torch.ops import cuda_gram, cuda_lrvjp
+from gaussianprocessfundamentals_tpu_torch.ops import (
+    cuda_expr,
+    cuda_gram,
+    cuda_lrvjp,
+    expr,
+)
+from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -53,10 +63,11 @@ def test_kernel_refuses_what_it_does_not_cover(cuda):
                                           0.3, 1.0, "se")
     with pytest.raises(RuntimeError, match="forward-only"):
         cuda_gram.fused_gram_matvec_cross(x, x, V.requires_grad_(), 0.3, 1.0, "se")
-    k = gpt.Matern32Kernel(dim=2)
+    # beyond K1 and K3 both: the router names what is missing
+    k = gpt.Matern32Kernel(dim=9)
     k.set_params({"lengthscale": torch.tensor(0.3)})
-    with pytest.raises(NotImplementedError, match="K3"):
-        cuda_gram.fused_matvec_for(k.to(cuda), x)
+    with pytest.raises(NotImplementedError, match="d=9 > 8"):
+        cuda_gram.fused_matvec_for(k.to(cuda), torch.rand(10, 9, device=cuda))
 
 
 def test_ard_se_routes_through_the_kernel(cuda):
@@ -153,13 +164,22 @@ def test_k2_refuses_what_it_does_not_cover(cuda):
     with pytest.raises(RuntimeError, match="analytically"):
         cuda_lrvjp.fused_lowrank_vjp_cross(x, x, U.requires_grad_(), U, 0.3,
                                            1.0, "se")
+    # ARD and Matérn at d > 1 go to K4 now; beyond K4 the router names why
     ard = gpt.SquaredExponentialKernel(dim=2)
     ard.set_params({"lengthscale": torch.tensor([0.2, 0.4])})
     m52 = gpt.Matern52Kernel(dim=2)
     m52.set_params({"lengthscale": torch.tensor(0.3)})
+    before = cuda_expr.expr_lowrank_vjp_cross.launches
+    U = torch.rand(10, 3, device=cuda)
     for k in (ard, m52):
-        with pytest.raises(NotImplementedError, match="K4"):
-            cuda_lrvjp.fused_lowrank_vjp_for(k.to(cuda), x)
+        g = cuda_lrvjp.fused_lowrank_vjp_for(k.to(cuda), x)(U, U)
+        assert torch.isfinite(g["lengthscale"]).all()
+    assert cuda_expr.expr_lowrank_vjp_cross.launches == before + 2
+    per = gpt.PeriodicKernel(dim=2)
+    per.set_params({"lengthscale": torch.tensor([0.2, 0.3]),
+                    "period": torch.tensor(0.4)})
+    with pytest.raises(NotImplementedError, match="cannot be per-dimension"):
+        cuda_lrvjp.fused_lowrank_vjp_for(per.to(cuda), x)
 
 
 def test_streamed_fit_step_runs_k2_once(cuda):
@@ -200,3 +220,181 @@ def test_facade_defaults_to_the_card_and_fits_there(cuda):
     res = gp.fit(x, y, method="iterative", steps=3, precond_m=32)
     assert torch.isfinite(res.history).all()
     assert gp.kernel.lengthscale.device.type == "cuda"
+
+
+def _expr(name, cuda):
+    """The expressions of chip_smoke.py phases 11 and 12, at small n."""
+    ard = [0.2, 0.3, 0.4]
+    cases = {
+        "se-ard-d3": (gpt.SquaredExponentialKernel(dim=3, scaled=True),
+                      {"lengthscale": ard, "variance": 1.3}, 3),
+        "per": (gpt.PeriodicKernel(scaled=True),
+                {"lengthscale": 0.6, "period": 0.15, "variance": 0.9}, 1),
+        # PER where its float32 phase is not accurate enough: at its
+        # defaults, at ℓ's lower bound (5·range/n, n = 100k) and at the
+        # period's (10·range/n)
+        "per-default": (gpt.PeriodicKernel(scaled=True),
+                        {"lengthscale": 0.1, "period": 0.1, "variance": 1.0}, 1),
+        "per-sharp": (gpt.PeriodicKernel(scaled=True),
+                      {"lengthscale": 5e-5, "period": 0.1, "variance": 1.0}, 1),
+        "per-short": (gpt.PeriodicKernel(scaled=True),
+                      {"lengthscale": 1.0, "period": 1e-4, "variance": 1.0}, 1),
+        "lin-ard-d3": (gpt.LinearKernel(dim=3, scaled=True),
+                       {"offset": [0.1, 0.5, 0.9], "variance": 0.7}, 3),
+        "mat32": (gpt.Matern32Kernel(scaled=True),
+                  {"lengthscale": 0.2, "variance": 0.7}, 1),
+        "mat52-ard-d3": (gpt.Matern52Kernel(dim=3, scaled=True),
+                         {"lengthscale": ard, "variance": 0.7}, 3),
+        "rq": (gpt.RationalQuadraticKernel(scaled=True),
+               {"lengthscale": 0.2, "alpha": 0.7, "variance": 1.1}, 1),
+        "const": (gpt.ConstantKernel(scaled=True), {"c": 0.8, "variance": 1.5}, 1),
+        "mauna": (gpt.SquaredExponentialKernel(scaled=True) * gpt.PeriodicKernel()
+                  + gpt.SquaredExponentialKernel(scaled=True) + gpt.LinearKernel(),
+                  {"children": ({"children": ({"lengthscale": 0.3, "variance": 0.05},
+                                              {"lengthscale": 0.8, "period": 0.05})},
+                                {"lengthscale": 0.15, "variance": 0.2},
+                                {"offset": [0.4]})}, 1),
+    }
+    kernel, params, d = cases[name]
+    kernel.set_params(_tensors(params))
+    return kernel.to(cuda), d
+
+
+def _tensors(tree):
+    """A params tree of floats and lists as tensors (a list is one
+    per-dimension vector)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tensors(v) for v in tree)
+    return torch.tensor(tree, dtype=torch.float32)
+
+
+EXPRS = ["se-ard-d3", "per", "lin-ard-d3", "mat32", "mat52-ard-d3", "rq",
+         "const", "mauna"]
+SHARP_PER = ["per-default", "per-sharp", "per-short"]
+
+
+@pytest.mark.parametrize("name", EXPRS)
+@pytest.mark.parametrize("r", [1, 9, 256])
+def test_k3_matches_plain_on_card(cuda, name, r):
+    """Within 5e-5·max|ref| (the JAX gates ``expr_matvec_*``)."""
+    kernel, d = _expr(name, cuda)
+    g = torch.Generator().manual_seed(4)
+    x1 = torch.rand(700, d, generator=g).to(cuda)
+    x2 = torch.rand(1301, d, generator=g).to(cuda)
+    V = torch.randn(1301, r, generator=g).to(cuda)
+    before = cuda_expr.expr_gram_matvec_cross.launches
+    got = cuda_expr.expr_gram_matvec_cross(kernel, x1, x2, V)
+    torch.cuda.synchronize()
+    assert cuda_expr.expr_gram_matvec_cross.launches == before + 1
+    ref = expr.plain_expr_gram_matvec_cross(kernel, x1, x2, V)
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 5e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("name", SHARP_PER)
+@pytest.mark.parametrize("r", [1, 9])
+def test_k3_matches_f64_plain_on_card_for_sharp_per(cuda, name, r):
+    """Within 5e-5·max|ref| of the plain version run in float64, where the
+    float32 plain version is up to 4e-2 off: the kernel reduces PER's phase
+    in float64."""
+    kernel, d = _expr(name, cuda)
+    g = torch.Generator().manual_seed(4)
+    x1 = torch.rand(700, d, generator=g).to(cuda)
+    x2 = torch.rand(1301, d, generator=g).to(cuda)
+    V = torch.randn(1301, r, generator=g).to(cuda)
+    got = cuda_expr.expr_gram_matvec_cross(kernel, x1, x2, V)
+    ref = expr.plain_expr_gram_matvec_cross(
+        copy.deepcopy(kernel).double(), x1.double(), x2.double(), V.double())
+    assert torch.isfinite(got).all()
+    assert float((got.double() - ref).abs().max()) <= 5e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("name", EXPRS + SHARP_PER)
+@pytest.mark.parametrize("r", [1, 17, 273])
+def test_k4_matches_plain_on_card(cuda, name, r):
+    """Per parameter array max|diff| / max|ref| ≤ 3e-3 against the plain
+    version run in float64 (the JAX gate ``expr_vjp_mauna``'s limit, with
+    its zero-mean cotangent), PER at its sharp settings included."""
+    kernel, d = _expr(name, cuda)
+    g = torch.Generator().manual_seed(5)
+    x1 = torch.rand(700, d, generator=g).to(cuda)
+    x2 = torch.rand(1301, d, generator=g).to(cuda)
+    U = (torch.randn(700, r, generator=g) / 700).to(cuda)
+    W = torch.randn(1301, r, generator=g).to(cuda)
+    before = cuda_expr.expr_lowrank_vjp_cross.launches
+    got = cuda_expr.expr_lowrank_vjp_cross(kernel, x1, x2, U, W)
+    torch.cuda.synchronize()
+    assert cuda_expr.expr_lowrank_vjp_cross.launches == before + 1
+    ref = expr.plain_expr_lowrank_vjp_cross(
+        copy.deepcopy(kernel).double(), x1.double(), x2.double(), U.double(),
+        W.double())
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    for _, slots, _ in expr.layout(kernel):
+        for off, sz in slots.values():
+            a, b = got[off:off + sz].double(), ref[off:off + sz]
+            assert float((a - b).abs().max()) <= 3e-3 * float(b.abs().max()), (a, b)
+
+
+def test_k3_k4_refuse_what_they_do_not_cover(cuda):
+    kernel, _ = _expr("mauna", cuda)
+    x = torch.rand(10, 1, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_expr.expr_gram_matvec_cross(kernel, x.double(), x.double(),
+                                         x.double())
+    with pytest.raises(RuntimeError, match="autograd"):
+        cuda_expr.expr_lowrank_vjp_cross(kernel, x, x, x.requires_grad_(), x)
+    wide = gpt.SquaredExponentialKernel(dim=9)
+    wide.set_params({"lengthscale": torch.tensor([0.3] * 9)})
+    x9 = torch.rand(10, 9, device=cuda)
+    with pytest.raises(NotImplementedError, match="d=9 > 8"):
+        cuda_expr.expr_gram_matvec_cross(wide.to(cuda), x9, x9, x9[:, :1])
+
+
+def test_composite_streamed_step_runs_k3_per_iteration_and_k4_once(cuda):
+    """One iterative NLL + gradient of the Mauna Loa composite (root
+    WhiteNoise included) on the streamed route: K3 once per CG iteration,
+    K4 once, and the same numbers as the materialised route on the same
+    probes."""
+    from gaussianprocessfundamentals_tpu_torch.models.iterative import _core_impl
+
+    kernel, _ = _expr("mauna", cuda)
+    full = kernel + gpt.WhiteNoiseKernel(scaled=True)
+    full.terms[-1].set_params({"variance": torch.tensor(0.02)})
+    full = full.to(cuda)
+    n, s, m = 3000, 8, 64
+    g = torch.Generator().manual_seed(6)
+    x = torch.sort(torch.rand(n, 1, generator=g), dim=0).values.to(cuda)
+    y = torch.sin(20 * x[:, 0]).to(cuda) + 0.1 * torch.randn(n, generator=g).to(cuda)
+    u = torch.randn(n, s, generator=g).to(cuda)
+    w = torch.randn(m, s, generator=g).to(cuda)
+    kw = dict(max_iters=20, tol=1e-4, precond_m=m, early_exit=False)
+    cuda_expr.expr_gram_matvec_cross.launches = 0
+    cuda_expr.expr_lowrank_vjp_cross.launches = 0
+    streamed = _core_impl(full, x, y, 0.01, u, w, materialize=False, **kw)
+    assert cuda_expr.expr_gram_matvec_cross.launches == 20
+    assert cuda_expr.expr_lowrank_vjp_cross.launches == 1
+    dense = _core_impl(full, x, y, 0.01, u, w, materialize=True, **kw)
+    for a, b in zip(tree_leaves(streamed[5]), tree_leaves(dense[5])):
+        assert abs(float(a) - float(b)) <= 1e-2 * abs(float(b)), (float(a), float(b))
+    assert abs(float(streamed[0]) - float(dense[0])) <= 1e-3 * abs(float(dense[0]))
+
+
+def test_cross_router_with_white_noise_on_card(cuda):
+    """The cross form with a root WhiteNoise (the posterior mean's
+    K(x_test, x)·α): K3 on the stripped core plus the exact test/train
+    coincidence term, against the full kernel's dense product."""
+    core, _ = _expr("mauna", cuda)
+    kernel = core + gpt.WhiteNoiseKernel(scaled=True)
+    kernel.terms[-1].set_params({"variance": torch.tensor(0.02)})
+    kernel = kernel.to(cuda)
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(900, 1, generator=g).to(cuda)
+    xt = torch.cat([x[100:110], torch.rand(50, 1, generator=g).to(cuda)])
+    V = torch.randn(900, 3, generator=g).to(cuda)
+    before = cuda_expr.expr_gram_matvec_cross.launches
+    got = cuda_gram.fused_matvec_cross_for(kernel, xt, x)(V)
+    assert cuda_expr.expr_gram_matvec_cross.launches == before + 1
+    ref = kernel.gram(xt, x) @ V
+    assert float((got - ref).abs().max()) <= 5e-5 * float(ref.abs().max())

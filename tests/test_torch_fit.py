@@ -430,3 +430,119 @@ def test_jax_params_tree_to_the_port():
 def test_facade_defaults_to_the_card():
     gp = gpt.GaussianProcess(gpt.SquaredExponentialKernel())
     assert gp.device.type == "cuda"
+
+
+def _mauna_data(n, seed=42):
+    """A Mauna-Loa-shaped series (trend + two seasonal harmonics + noise,
+    the JAX package's ``synth_mauna_loa`` formula), x and y min-max
+    normalised to [0, 1]."""
+    t = np.linspace(1958.0, 2018.0, n)
+    y = (315.0 + 0.8 * (t - 1958.0) + 0.012 * (t - 1958.0) ** 2
+         + 3.0 * np.sin(2 * np.pi * t) + 0.8 * np.sin(4 * np.pi * t)
+         + 0.3 * np.random.default_rng(seed).standard_normal(n))
+    return ((t - t.min()) / (t.max() - t.min()))[:, None], (y - y.min()) / (
+        y.max() - y.min())
+
+
+def _mauna_pair():
+    """The Mauna Loa composite SE~s·PER + SE~s + LIN + WN~s in both
+    packages, with the same hyperparameters."""
+    jk = (gpf.SquaredExponentialKernel(scaled=True) * gpf.PeriodicKernel()
+          + gpf.SquaredExponentialKernel(scaled=True) + gpf.LinearKernel()
+          + gpf.WhiteNoiseKernel(scaled=True))
+    jp = {"children": (
+        {"children": ({"lengthscale": jnp.asarray(0.3), "variance": jnp.asarray(0.05)},
+                      {"lengthscale": jnp.asarray(0.8), "period": jnp.asarray(0.05)})},
+        {"lengthscale": jnp.asarray(0.15), "variance": jnp.asarray(0.2)},
+        {"offset": jnp.asarray([0.4])},
+        {"variance": jnp.asarray(0.02)})}
+    tk = gpt.kernel_from_dict(jk.to_dict())
+    gpt.params_from_numpy(tk, jax.tree_util.tree_map(np.asarray, jp))
+    return jk, jp, tk
+
+
+@pytest.mark.parametrize("materialize", [True, False])
+def test_composite_core_impl_matches_jax(materialize):
+    """The composite slice's NLL + gradient core on the JAX package's own
+    probes: the Mauna Loa composite (root WhiteNoise included) on the
+    materialised and the streamed routes, every gradient leaf to rtol 1e-6
+    (the SE case's tolerance: the same arithmetic downstream of the
+    preconditioner)."""
+    n, s, m = 500, 4, 8
+    x, y = _mauna_data(n)
+    jk, jp, tk = _mauna_pair()
+    key = jr.PRNGKey(5)
+    kw = dict(max_iters=6, tol=1e-14, precond_m=m, early_exit=False,
+              materialize=materialize)
+    ref = jax_iterative._core_impl(jk, jp, jnp.asarray(x), jnp.asarray(y),
+                                   NOISE, key, num_probes=s, block=128, **kw)
+    u, w = _jax_probes(key, n, s, m)
+    w = _port_w(jk, jp, tk, x, m, w)
+    got = iterative._core_impl(tk, torch.from_numpy(x), torch.from_numpy(y),
+                               NOISE, torch.from_numpy(u), torch.from_numpy(w),
+                               **kw)
+    for name, g, r in zip(("data_fit", "log_P", "alphas", "betas",
+                           "z_weights"), got[:5], ref[:5]):
+        _close(g, r, 1e-6, name)
+    assert len(tree_leaves(got[5])) == 8
+    for path, r in _paths(ref[5]):
+        _close(_at(got[5], path), r, 1e-6, str(path))
+    _close(got[6], ref[6], 1e-6, "grad_noise")
+    _close(got[8], ref[8], 1e-6, "resid")
+
+
+def _paths(tree, path=()):
+    """(path, leaf) pairs of a params tree: the JAX package orders dict
+    leaves by key, the port by parameter, so leaves are matched by path."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items() for pl in _paths(v, path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, v in enumerate(tree) for pl in _paths(v, path + (i,))]
+    return [(path, tree)]
+
+
+def _at(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def test_composite_facade_fit_posterior_and_checkpoints_both_ways(tmp_path):
+    """The composite slice through the facade on the CPU: ``fit(method=
+    "auto")`` on the iterative Adam route (the dense set made over budget),
+    a posterior, and a checkpoint of the fitted composite saved by each
+    package and loaded by the other, predicting the same (rtol 1e-8)."""
+    x, y = _mauna_data(400)
+    xt = (np.arange(30)[:, None] + 0.5) / 30.0
+    kernel = (gpt.SquaredExponentialKernel(scaled=True) * gpt.PeriodicKernel()
+              + gpt.SquaredExponentialKernel(scaled=True) + gpt.LinearKernel()
+              + gpt.WhiteNoiseKernel(scaled=True))
+    gp = gpt.GaussianProcess(kernel, device="cpu",
+                             config=GPConfig(dense_hbm_budget=1e3))
+    res = gp.fit(x, y, method="auto", optimize_noise=True, noise=NOISE,
+                 steps=6, lr=0.05, iterative_kwargs={"precond_m": 16,
+                                                     "max_iters": 30,
+                                                     "tol": 1e-6})
+    assert res.diagnostics == {"frozen_frac": 0.0}
+    assert res.nll_post < res.nll_pre
+    post = gp.posterior(xt)
+    assert torch.isfinite(post.mean).all() and (post.var >= 0).all()
+
+    path = str(tmp_path / "mauna")
+    gpt.save(path, gp.kernel, None, gp.noise)
+    jk, jkp, _, _, jnoise = jax_checkpoint.load(path)
+    assert jk.to_dict() == gp.kernel.to_dict()
+    jgp = gpf.GaussianProcess(jk, kernel_params=jkp, noise=jnp.asarray(jnoise))
+    jgp.set_data(jnp.asarray(x), jnp.asarray(y))
+    jpost = jgp.posterior(jnp.asarray(xt))
+    _close(post.mean, jpost.mean, 1e-8, "mean")
+    np.testing.assert_allclose(post.var.numpy(), np.asarray(jpost.var),
+                               rtol=0, atol=1e-8)
+
+    back = str(tmp_path / "back")
+    jax_checkpoint.save(back, jk, jkp, noise=jnoise)
+    kernel2, _, noise2 = gpt.load(back)
+    post2 = gpt.GaussianProcess(kernel2, noise=noise2, device="cpu").set_data(
+        x, y).posterior(xt)
+    torch.testing.assert_close(post2.mean, post.mean, rtol=1e-12, atol=0)
+    torch.testing.assert_close(post2.var, post.var, rtol=1e-12, atol=1e-15)

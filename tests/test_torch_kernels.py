@@ -94,8 +94,12 @@ def test_x_rescale_matches_jax():
 
 
 def test_unported_kernel_type_raises():
+    from gaussianprocessfundamentals_tpu.kernels.operators import ChangePoint
+
+    cp = ChangePoint(children=(gpf.SquaredExponentialKernel(),
+                               gpf.PeriodicKernel()))
     with pytest.raises(NotImplementedError, match="not ported"):
-        gpt.kernel_from_dict(gpf.PeriodicKernel().to_dict())
+        gpt.kernel_from_dict(cp.to_dict())
 
 
 def test_set_params_rejects_wrong_names():

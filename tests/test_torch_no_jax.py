@@ -31,6 +31,14 @@ fitted = gpt.GaussianProcess(gpt.SquaredExponentialKernel(scaled=True),
                              device="cpu")
 res = fitted.fit(x, y, method="iterative", steps=3, precond_m=16, max_iters=20,
                  materialize=False)
+mauna = (gpt.SquaredExponentialKernel(scaled=True) * gpt.PeriodicKernel()
+         + gpt.SquaredExponentialKernel(scaled=True) + gpt.LinearKernel()
+         + gpt.WhiteNoiseKernel(scaled=True))
+composite = gpt.GaussianProcess(mauna, device="cpu")
+res2 = composite.fit(x, y, method="iterative", steps=3, precond_m=16,
+                     max_iters=20, materialize=False)
+post2 = composite.posterior(np.linspace(0, 1, 20, dtype=np.float32)[:, None],
+                            method="iterative")
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
@@ -38,14 +46,18 @@ print(json.dumps({
                         or m == "gaussianprocessfundamentals_tpu"),
     "triton": "triton" in sys.modules,
     "finite": bool(torch.isfinite(post.mean).all() and torch.isfinite(post.var).all()
-                   and torch.isfinite(res.history).all()),
-    "fit_steps": len(res.history),
+                   and torch.isfinite(res.history).all()
+                   and torch.isfinite(res2.history).all()
+                   and torch.isfinite(post2.mean).all()),
+    "fit_steps": len(res.history) + len(res2.history),
 }))
 """
 
 
 def test_port_imports_and_serves_without_jax():
-    """Also a 3-step iterative fit on the streamed (K1 + K2 plain) route."""
+    """Also 3-step iterative fits on the streamed route, of an SE kernel
+    (K1 + K2 plain) and of the Mauna Loa composite (K3 + K4 plain), and the
+    composite's posterior."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests
@@ -56,7 +68,7 @@ def test_port_imports_and_serves_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"jax": [], "reference": [], "triton": False, "finite": True,
-                   "fit_steps": 3}
+                   "fit_steps": 6}
 
 
 def test_no_module_of_the_port_imports_jax():
