@@ -1,5 +1,7 @@
 """Drive the PyTorch port's serving and training paths once on one GPU:
-for an SE kernel (K1 and K2) and for the Mauna Loa composite (K3 and K4).
+for an SE kernel (K1 and K2), for the Mauna Loa composite (K3 and K4), and
+on the dense exact route with its Gram kernels (K5 and K6): dense serving,
+sampling, and segmented GPs at N = 100k.
 
     python3 chip_smoke.py
 
@@ -10,10 +12,10 @@ non-zero):
    versions and the TF32 flags (both off: full-float32 matmuls);
 2. build: every kernel from the checkout, one nvcc for each library, all
    started together: Gram·V (K1, csrc/gram_matvec.cu), the low-rank-
-   cotangent gradient (K2, csrc/lowrank_vjp.cu), and the composite-
-   expression Gram·V (K3, csrc/expr_matvec.cu) and gradient (K4,
-   csrc/expr_vjp.cu) compiled with the code generated for each expression
-   of phases 11-17, sm_90a;
+   cotangent gradient (K2, csrc/lowrank_vjp.cu), the dense Gram kernels
+   (K5 and K6, csrc/dense_gram.cu), and the composite-expression Gram·V
+   (K3, csrc/expr_matvec.cu) and gradient (K4, csrc/expr_vjp.cu) compiled
+   with the code generated for each expression of phases 11-17, sm_90a;
 3. K1 check: K1 against its plain PyTorch version on the card at ragged
    shapes, for SE, Matérn-3/2 and Matérn-5/2 at d = 1 and SE at d = 3;
    Phase 5 repeats the check at the main path's shapes (n = 100k,
@@ -76,25 +78,55 @@ non-zero):
     and K4 at r = 273 at n = 100k on the composite's training inputs:
     checked against their plain versions (K4 also against float64), then
     timed in turns with them, each beside its bound;
-17. profile: one composite fit step under ``torch.profiler``.
+17. profile: one composite fit step under ``torch.profiler``;
+18. K5/K6 check: ``se_gram`` and ``matern_gram`` against their plain
+    versions at n1 = 3000, n2 = 5001 (SE at d = 1, 3 and 8, ARD SE at d = 3
+    through the router, Matérn-3/2 and -5/2 at d = 1; diag_add 0 and 0.25;
+    square and cross), and the JAX gates ``se_gram_d1``, ``se_gram_d3``,
+    ``matern32_gram_d1`` and ``matern52_gram_d1`` (n = 4096, ℓ = 0.1,
+    diag_add 0.25) against the plain version in float32 and in float64,
+    each max|diff| / max|ref| < 2e-5;
+19. dense serving, the slice's main path: ``GaussianProcess.posterior``
+    (``method="auto"``, the dense Cholesky route) at N = 16,384 and 1,000
+    test points, for SE~s and then Matérn-5/2~s: exactly 2 K5 or K6
+    launches (K + noise, K_s), μ and var against a float64 dense Cholesky
+    on the card (1e-3), the median of 5 warm calls split into the Gram
+    builds, the Cholesky and the triangular solves, peak memory; then 64
+    ``sample_posterior`` draws at those points;
+20. segmented GPs at N = 100,000: ``BlockwiseGP`` over 16 change-point
+    segments (SE~s and Matérn-5/2~s alternating, ~6,250 rows each, dense
+    L-BFGS per segment), fit, predict at 10,000 points and log marginal
+    likelihood: no K5/K6 launch in the fit, 24 of each in predict and the
+    likelihood, RMSE against the noise-free function < 0.05;
+21. ``PartitionedGP`` over 4 boxes of d = 2 inputs, N = 20,000 (K5 at
+    d = 2), fit and predict; ``fit_segments_vmapped`` of SE~s over the 16
+    segments of phase 20, 20 Adam steps as one batched program;
+22. K5 and K6 timed in turns with their plain versions (CUDA events) at
+    the JAX package's benchmark sizes (n = 10,000 and 50,000) and at the
+    dense paths' shapes (16,384², 6,250² and the [100,000 × 256] K_s of a
+    posterior chunk), beside the bound and ``torch.linalg.cholesky`` of the
+    same square matrix.
 
-Each path's launch counts (all four kernels) are set to 0 just before it
+Each path's launch counts (all six kernels) are set to 0 just before it
 is driven and read just after. The second-to-last line, after the card's
-name and power limit, is one JSON object that lists the four kernels:
+name and power limit, is one JSON object that lists the six kernels:
 launches on the main paths (``launches``: the sum; ``launches_by_path``:
 the SE posterior of phase 5, the SE fit of phase 8, the composite fit of
-phase 14 and the composite posterior of phase 15), the largest absolute and
-relative differences from the plain version over the checks (relative:
-K1's and K3's max|diff| / max|ref|, K2's per scalar, K4's per parameter
-array), the kernel's and the plain version's times at the main path's
-shapes (K1 and K3 at r = 256; K3 also at r = 1 and 9 in
-``ms_by_width``, beside ``bound_ms_by_width``), and the bound: the larger
-of the bytes the function must move over 3.35 TB/s and its operations over
-their peak (2·n1·n2·(r + d) float32 operations at 67 TFLOP/s; the
-special-function calls per pair -- one exponential for K1 and K2; for K3
-and K4 the calls the expression needs (``_special_calls``) -- at 132 SMs ×
-16 per clock × 1.98 GHz). The last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device it fails.
+phase 14, the composite posterior of phase 15, the dense posteriors of
+phase 19, the segmented and partitioned paths of phases 20 and 21), the
+largest absolute and relative differences from the plain version over the
+checks (relative: K1's, K3's, K5's and K6's max|diff| / max|ref|, K2's per
+scalar, K4's per parameter array), the kernel's and the plain version's
+times at the main path's shapes (K1 and K3 at r = 256; K3 also at r = 1
+and 9 in ``ms_by_width``, beside ``bound_ms_by_width``; K5 and K6 at the
+16,384² build, every shape of phase 22 in ``ms_by_shape`` and its
+neighbours), and the bound: the larger of the bytes the function must move
+over 3.35 TB/s and its operations over their peak (2·n1·n2·(r + d) float32
+operations at 67 TFLOP/s for a product, 3·n·m·d for a Gram; the
+special-function calls per pair -- one exponential for K1, K2, K5 and K6;
+for K3 and K4 the calls the expression needs (``_special_calls``) -- at
+132 SMs × 16 per clock × 1.98 GHz). The last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device it fails.
 """
 from __future__ import annotations
 
@@ -157,6 +189,7 @@ def phase_build() -> None:
     every expression of the composite phases."""
     from gaussianprocessfundamentals_tpu_torch.ops import (
         cuda_build,
+        cuda_dense_gram,
         cuda_expr,
         cuda_gram,
         cuda_lrvjp,
@@ -167,14 +200,15 @@ def phase_build() -> None:
         fn(*args)
         return time.perf_counter() - t0
 
-    sources = ("gram_matvec.cu", "lowrank_vjp.cu")
+    sources = ("gram_matvec.cu", "lowrank_vjp.cu", "dense_gram.cu")
     exprs = [(k, d) for _, k, d in _expr_cases()]
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
         futures = [pool.submit(timed, cuda_build.build, src) for src in sources]
         futures.append(pool.submit(timed, cuda_expr.prebuild, exprs))
         seconds = [f.result() for f in futures]
     cuda_gram._lib()
     cuda_lrvjp._lib()
+    cuda_dense_gram._lib()
     for source, dt in zip(sources, seconds):
         log(f"[build] {source} -> {cuda_build.library_path(source).name} "
             f"in {dt:.2f} s")
@@ -321,6 +355,7 @@ def phase_main() -> dict:
     counts = _launch_counts()
     launches = counts["K1"]
     peak = torch.cuda.max_memory_allocated()
+    chunks = -(-T_MAIN // 256)
 
     stats = post.solve_stats
     truth = torch.sin(8.0 * xt[:, 0])
@@ -331,11 +366,13 @@ def phase_main() -> dict:
     log(f"[main] N={N_MAIN} t={T_MAIN} posterior(method='auto'): wall {wall:.3f} s, "
         f"CG iters {stats['iters']}, true rel resid "
         f"{[float(f'{r:.3e}') for r in stats['rel_resid']]}, "
-        f"K1 launches {launches}, peak mem {peak / 1e9:.3f} GB, "
+        f"K1 launches {launches}, K5 launches {counts['K5']} (one per K_s "
+        f"chunk), peak mem {peak / 1e9:.3f} GB, "
         f"mean RMSE vs sin(8x) {rmse:.5f}, var range "
         f"[{float(post.var.min()):.3e}, {float(post.var.max()):.3e}]")
     checks = {
         "K1 launched": launches > 0,
+        f"K5 launched once per chunk ({chunks})": counts["K5"] == chunks,
         "finite, shape": finite and shapes,
         "var >= 0": nonneg,
         "max rel CG resid < 1e-3": max(stats["rel_resid"]) < 1e-3,
@@ -994,8 +1031,9 @@ def _mauna_model():
 
 
 def _wrappers() -> dict:
-    """The four kernels' wrappers, each with its ``launches`` count."""
+    """The six kernels' wrappers, each with its ``launches`` count."""
     from gaussianprocessfundamentals_tpu_torch.ops import (
+        cuda_dense_gram,
         cuda_expr,
         cuda_gram,
         cuda_lrvjp,
@@ -1004,7 +1042,9 @@ def _wrappers() -> dict:
     return {"K1": cuda_gram.fused_gram_matvec_cross,
             "K2": cuda_lrvjp.fused_lowrank_vjp_cross,
             "K3": cuda_expr.expr_gram_matvec_cross,
-            "K4": cuda_expr.expr_lowrank_vjp_cross}
+            "K4": cuda_expr.expr_lowrank_vjp_cross,
+            "K5": cuda_dense_gram.se_gram,
+            "K6": cuda_dense_gram.matern_gram}
 
 
 def _launch_counts() -> dict:
@@ -1201,6 +1241,439 @@ def phase_expr_time(x) -> dict:
     return out
 
 
+# --- the dense exact route: K5 and K6 ----------------------------------------
+
+N_DENSE = 16_384  # the largest power of two below the 20,000-row crossover
+K56_RTOL = 2e-5  # the JAX gates se_gram_* and matern*_gram_d1
+N_SEG, S_SEG = 100_000, 16
+T_SEG = 10_000
+N_PART = 20_000
+BENCH_N = (10_000, 50_000)  # bench_pallas.py:64-69
+# The dense posterior variance k_ss − ‖L⁻¹k_s‖² at N = 16,384, noise 1e-2,
+# is at most ~3e-5 of k_ss = 1, and the float32 factor's rounding leaves
+# ~1% of that (1.2e-2 for SE, 4.4e-3 for Matérn-5/2 on an H100): held
+# relative to max|var| of the float64 posterior, with 4x room.
+DENSE_VAR_RTOL = 5e-2
+
+
+def _k56_check(fn, plain, x1, x2, ls, var, diag_add, tag, extra=None,
+               ref=None):
+    """K5 or K6 against its plain version on the same inputs (or against
+    ``ref``): max|diff| / max|ref| < K56_RTOL. Returns (max|diff|, rel)."""
+    extra = extra or {}
+    got = fn(x1, x2, ls, var, diag_add, **extra)
+    torch.cuda.synchronize()
+    if ref is None:
+        ref = plain(x1, x2, ls, var, diag_add, **extra)
+    err = float((got.double() - ref.double()).abs().max())
+    scale = float(ref.abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= K56_RTOL * scale
+    log(f"[k56] {tag} n1={x1.shape[0]} n2={x2.shape[0]} d={x1.shape[1]} "
+        f"diag_add={diag_add}: max|diff| {err:.3e} (limit {K56_RTOL:g} x "
+        f"max|ref| {scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{fn.__name__} disagrees with its reference: {tag}")
+    return err, err / scale
+
+
+def phase_k56_check() -> dict:
+    """K5 and K6 against their plain versions at ragged shapes, then the
+    JAX package's four gates (``check_pallas_tpu.py:62-105``) against the
+    plain version in float32 and in float64."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.ops import cuda_dense_gram as dg
+
+    g = torch.Generator().manual_seed(18)
+    worst = {"K5": (0.0, 0.0), "K6": (0.0, 0.0)}
+    n1, n2 = 3000, 5001
+    cases = [("K5", dg.se_gram, dg.plain_se_gram, d, {}) for d in (1, 3, 8)]
+    cases += [("K6", dg.matern_gram, dg.plain_matern_gram, 1, {"nu": nu})
+              for nu in ("32", "52")]
+    for name, fn, plain, d, extra in cases:
+        x1 = torch.rand(n1, d, generator=g).cuda()
+        x2 = torch.rand(n2, d, generator=g).cuda()
+        for a, b in ((x1, x1), (x1, x2)):
+            for diag_add in (0.0, 0.25):
+                worst[name] = _worse(worst[name], _k56_check(
+                    fn, plain, a, b, 0.3, 1.3, diag_add,
+                    f"{fn.__name__} {extra.get('nu', '')}".strip(), extra))
+    # ARD SE through the router (x scaled by 1/ℓ), against kernel.gram
+    ard = gpt.SquaredExponentialKernel(dim=3, scaled=True).set_params({
+        "lengthscale": torch.tensor([0.2, 0.3, 0.4]),
+        "variance": torch.tensor(1.3)}).cuda()
+    x1 = torch.rand(n1, 3, generator=g).cuda()
+    x2 = torch.rand(n2, 3, generator=g).cuda()
+    for a, b, diag_add in ((x1, x1, 0.25), (x1, x2, 0.0)):
+        before = dg.se_gram.launches
+        got = dg.dense_gram_for(ard, a, b, diag_add)
+        torch.cuda.synchronize()
+        ref = ard.gram(a, b)
+        if diag_add:
+            ref = ref + diag_add * torch.eye(a.shape[0], device="cuda")
+        err = float((got - ref).abs().max())
+        ok = (dg.se_gram.launches == before + 1
+              and err <= K56_RTOL * float(ref.abs().max()))
+        log(f"[k56] ARD SE d=3 via dense_gram_for n1={a.shape[0]} "
+            f"n2={b.shape[0]}: max|diff| {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("the router's ARD SE disagrees with kernel.gram")
+        worst["K5"] = _worse(worst["K5"], (err, err / float(ref.abs().max())))
+    # the JAX gates: n = 4096 sorted uniform, ℓ = 0.1, diag_add 0.25
+    rng = np.random.default_rng(0)
+    for gate, name, fn, d, var, extra in (
+            ("se_gram_d1", "K5", dg.se_gram, 1, 1.3, {}),
+            ("se_gram_d3", "K5", dg.se_gram, 3, 1.3, {}),
+            ("matern32_gram_d1", "K6", dg.matern_gram, 1, 1.0, {"nu": "32"}),
+            ("matern52_gram_d1", "K6", dg.matern_gram, 1, 1.0, {"nu": "52"})):
+        x = torch.tensor(np.sort(rng.uniform(0, 1, (4096, d)), axis=0),
+                         dtype=torch.float32).cuda()
+        plain = dg.plain_se_gram if name == "K5" else dg.plain_matern_gram
+        worst[name] = _worse(worst[name], _k56_check(
+            fn, plain, x, x, 0.1, var, 0.25, f"{gate} vs float32 plain",
+            extra))
+        ref64 = plain(x.double(), x.double(), 0.1, var, 0.25, **extra)
+        _k56_check(fn, plain, x, x, 0.1, var, 0.25, f"{gate} vs float64",
+                   extra, ref=ref64)
+    return worst
+
+
+def _dense_kernel(kind: str, dtype=torch.float32):
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    leaf = (gpt.SquaredExponentialKernel if kind == "se"
+            else gpt.Matern52Kernel)
+    return leaf(scaled=True).set_params({
+        "lengthscale": torch.tensor(LENGTHSCALE, dtype=dtype),
+        "variance": torch.tensor(1.0, dtype=dtype)}).cuda()
+
+
+def _dense_split_ms(gp, xt) -> dict:
+    """The dense posterior's three parts timed by CUDA events: the Gram
+    builds (K + noise, K_s), the Cholesky, the triangular solves (y, then
+    L⁻¹K_s)."""
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_dense_gram import (
+        dense_gram_for,
+        noised_gram,
+    )
+
+    x, y, k = gp.x_train, gp.y_train, gp.kernel
+    Kn = noised_gram(k, x, gp.noise, gp.config.jitter)
+    L = torch.linalg.cholesky(Kn)
+    K_s = dense_gram_for(k, x, xt)
+
+    def solves():
+        z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+        torch.linalg.solve_triangular(L.mT, z, upper=True)
+        torch.linalg.solve_triangular(L, K_s, upper=False)
+
+    out = {
+        "gram_ms": _time_ms(lambda: (noised_gram(k, x, gp.noise,
+                                                 gp.config.jitter),
+                                     dense_gram_for(k, x, xt)), 5),
+        "cholesky_ms": _time_ms(lambda: torch.linalg.cholesky(Kn), 5),
+        "solves_ms": _time_ms(solves, 5),
+    }
+    del Kn, L, K_s
+    return out
+
+
+def phase_dense_serve() -> dict:
+    """The slice's main path: the dense posterior at N = 16,384 for SE~s
+    (K5) and then Matérn-5/2~s (K6), checked against a float64 dense
+    Cholesky on the card, timed, then sampled."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    x, y = _data(N_DENSE, seed=19, device="cuda")
+    xt = torch.linspace(0.01, 0.99, T_MAIN, device="cuda")[:, None]
+    out = {"counts": {}}
+    for kind, name in (("se", "K5"), ("mat52", "K6")):
+        gp = gpt.GaussianProcess(_dense_kernel(kind), noise=NOISE,
+                                 device="cuda").set_data(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        post = gp.posterior(xt)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            gp.posterior(xt)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        split = _dense_split_ms(gp, xt)
+        gp64 = gpt.GaussianProcess(_dense_kernel(kind, torch.float64),
+                                   noise=NOISE, device="cuda").set_data(
+            x.double(), y.double())
+        ref = gp64.posterior(xt.double(), method="dense")
+        mu_err = float((post.mean.double() - ref.mean).abs().max())
+        mu_lim = 1e-3 * float(ref.mean.abs().max())
+        var_err = float((post.var.double() - ref.var).abs().max())
+        var_lim = DENSE_VAR_RTOL * float(ref.var.abs().max())
+        del gp64, ref
+        draws = gp.sample_posterior(
+            xt, torch.Generator(device="cuda").manual_seed(19), 64)
+        torch.cuda.synchronize()
+        dev = (draws.mean(dim=0) - post.mean).abs()
+        band = 4.0 * draws.std(dim=0) / 8.0
+        log(f"[dense] {kind} N={N_DENSE} t={T_MAIN} posterior(method='auto'):"
+            f" first {first:.4f} s, median of 5 warm "
+            f"{float(np.median(walls)) * 1e3:.2f} ms (gram builds "
+            f"{split['gram_ms']:.3f} ms, cholesky {split['cholesky_ms']:.3f} "
+            f"ms, triangular solves {split['solves_ms']:.3f} ms), launches "
+            f"{counts}, peak mem {peak / 1e9:.3f} GB; vs float64 dense: mu "
+            f"max|diff| {mu_err:.3e} (limit {mu_lim:.3e}), var max|diff| "
+            f"{var_err:.3e} (limit {var_lim:.3e} = {DENSE_VAR_RTOL:g} x "
+            f"max|var| {var_lim / DENSE_VAR_RTOL:.3e}); 64 draws: max |mean - mu| / "
+            f"(4 sd/8) {float((dev / band).max()):.3f}")
+        checks = {
+            f"{name} launches == 2": counts[name] == 2,
+            "no other kernel": sum(counts.values()) == 2,
+            "mu within 1e-3 of float64": mu_err <= mu_lim,
+            f"var within {DENSE_VAR_RTOL:g} x max|var| of float64":
+            var_err <= var_lim,
+            "finite": bool(torch.isfinite(post.mean).all()
+                           and torch.isfinite(post.var).all()),
+            "draws finite, shape": bool(torch.isfinite(draws).all())
+            and tuple(draws.shape) == (64, T_MAIN),
+            "draw mean within 4 sd / sqrt(64)": bool((dev <= band).all()),
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise RuntimeError(f"dense serving checks failed ({kind}): {failed}")
+        out["counts"][kind] = counts
+        out[kind] = {"median_ms": float(np.median(walls)) * 1e3, **split}
+        del gp, post, draws
+    torch.cuda.empty_cache()
+    return out
+
+
+def _segment_function(x):
+    """The segmented data's noise-free function: sin(ωₛx) + cₛ in segment
+    s = ⌊16x⌋, ωₛ and cₛ varying by segment."""
+    s = torch.clamp((x[:, 0] * S_SEG).floor(), 0, S_SEG - 1)
+    omega = 6.0 + 2.0 * torch.remainder(s, 4)
+    c = 0.3 * torch.remainder(s, 3) - 0.3
+    return torch.sin(omega * x[:, 0]) + c
+
+
+def _segmented_data():
+    g = torch.Generator().manual_seed(20)
+    x = torch.sort(torch.rand(N_SEG, 1, generator=g), dim=0).values.cuda()
+    y = _segment_function(x) + 0.1 * torch.randn(N_SEG, generator=g).cuda()
+    return x, y
+
+
+def phase_segmented() -> dict:
+    """BlockwiseGP at N = 100,000 over 16 change-point segments, SE~s and
+    Matérn-5/2~s alternating: fit (dense L-BFGS per segment), predict at
+    10,000 points, log marginal likelihood."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    x, y = _segmented_data()
+    kernels = [gpt.SquaredExponentialKernel(scaled=True) if s % 2 == 0
+               else gpt.Matern52Kernel(scaled=True) for s in range(S_SEG)]
+    bw = gpt.BlockwiseGP(kernels, locations=[s / S_SEG for s in range(1, S_SEG)],
+                         device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    results = bw.fit(x, y, method="auto", optimize_noise=True)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_counts = _launch_counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    xt = torch.linspace(0.0, 1.0, T_SEG + 2, device="cuda")[1:-1, None]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    mu, _, _, var = bw.predict(xt)
+    torch.cuda.synchronize()
+    predict_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lml = bw.log_marginal_likelihood()
+    lml_wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rmse = float(torch.sqrt(torch.mean((mu - _segment_function(xt)) ** 2)))
+    sizes = [gp.x_train.shape[0] for gp in bw.gps]
+    nll_drop = [r.nll_post < r.nll_pre for r in results]
+    fitted = {name: [float(r.kernel_params[name]) for r in results]
+              for name in ("lengthscale", "variance")}
+    fitted["noise"] = [float(r.noise) for r in results]
+    log("[segmented] fitted ranges: " + ", ".join(
+        f"{name} [{min(v):.4g}, {max(v):.4g}]" for name, v in fitted.items()))
+    log(f"[segmented] BlockwiseGP N={N_SEG}, {S_SEG} segments of "
+        f"{min(sizes)}-{max(sizes)} rows, SE~s / Matern-5/2~s: fit "
+        f"{fit_wall:.3f} s (launches {fit_counts}, peak {fit_peak / 1e9:.3f} "
+        f"GB, NLL fell in {sum(nll_drop)}/{S_SEG} segments), predict at "
+        f"{T_SEG} points {predict_wall:.3f} s, log marginal likelihood "
+        f"{lml:.2f} in {lml_wall:.3f} s; launches {counts}, peak "
+        f"{peak / 1e9:.3f} GB; RMSE vs the noise-free function {rmse:.5f}")
+    checks = {
+        "no K5/K6 launch in the fit": fit_counts["K5"] == 0
+        and fit_counts["K6"] == 0,
+        "K5 == 24 and K6 == 24": counts["K5"] == 24 and counts["K6"] == 24,
+        "finite": bool(torch.isfinite(mu).all() and torch.isfinite(var).all())
+        and np.isfinite(lml),
+        "var >= 0": bool((var >= 0).all()),
+        "RMSE < 0.05": rmse < 0.05,
+        "every segment's NLL fell": all(nll_drop),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"segmented path checks failed: {failed}")
+    segments = [(gp.x_train, gp.y_train) for gp in bw.gps]
+    del bw
+    torch.cuda.empty_cache()
+    return {"counts": counts, "segments": segments}
+
+
+def phase_partitioned(segments) -> dict:
+    """PartitionedGP over 4 boxes of d = 2 inputs (K5 at d = 2), then
+    fit_segments_vmapped of SE~s over the 16 segments of phase 20."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    g = torch.Generator().manual_seed(21)
+    x = torch.rand(N_PART, 2, generator=g).cuda()
+    truth = lambda a: torch.sin(6 * a[:, 0]) + torch.cos(4 * a[:, 1])  # noqa: E731
+    y = truth(x) + 0.1 * torch.randn(N_PART, generator=g).cuda()
+    pg = gpt.PartitionedGP(
+        [gpt.SquaredExponentialKernel(dim=2, scaled=True) for _ in range(4)],
+        model=gpt.BoxPartitioning(edges=(0.25, 0.5, 0.75), dim=0),
+        device="cuda")
+    t0 = time.perf_counter()
+    pg.fit(x, y, method="auto", optimize_noise=True)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    xt = torch.rand(2000, 2, generator=g).cuda()
+    _zero_counts()
+    t0 = time.perf_counter()
+    mu = pg.predict(xt)[0]
+    torch.cuda.synchronize()
+    predict_wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    rmse = float(torch.sqrt(torch.mean((mu - truth(xt)) ** 2)))
+    log(f"[partitioned] PartitionedGP N={N_PART} d=2, 4 boxes, SE~s: fit "
+        f"{fit_wall:.3f} s, predict at 2000 points {predict_wall:.3f} s, "
+        f"launches {counts}, RMSE vs the noise-free function {rmse:.5f}")
+    if counts["K5"] != 8 or not rmse < 0.05:
+        raise RuntimeError("partitioned path: K5 launches != 8 or RMSE >= 0.05")
+    del pg
+    torch.cuda.empty_cache()
+
+    kernel = gpt.SquaredExponentialKernel(scaled=True)
+    _, _, start = gpt.fit_segments_vmapped(kernel, segments, steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kp, noises, final = gpt.fit_segments_vmapped(kernel, segments, steps=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[vmapped] fit_segments_vmapped SE~s, {len(segments)} segments "
+        f"padded to {max(s[0].shape[0] for s in segments)} rows, 20 Adam "
+        f"steps: {wall:.3f} s ({wall / 20:.3f} s/step), peak "
+        f"{peak / 1e9:.3f} GB; NLL start {[round(float(v), 1) for v in start]} "
+        f"-> final {[round(float(v), 1) for v in final]}")
+    if not (torch.isfinite(final).all() and (final < start).all()):
+        raise RuntimeError("fit_segments_vmapped: final NLLs not finite or "
+                           "not below their start")
+    return {"counts": counts}
+
+
+def _gram_bound(n: int, m: int, d: int):
+    """(bound_ms, bound_by) of a Gram build: 4·n·m bytes out and
+    4·(n + m)·d in over the memory rate, against 3·n·m·d float32
+    operations and one special-function call per entry."""
+    t_bytes = 4.0 * (n * m + (n + m) * d) / HBM_BYTES_PER_S
+    t_ops = max(3.0 * n * m * d / F32_OPS_PER_S, n * m / EXP_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def _max_abs_diff(a, b, rows: int = 4096) -> float:
+    """max|a − b| in row blocks, so a 50,000² check holds no third matrix."""
+    return max(float((a[i:i + rows] - b[i:i + rows]).abs().max())
+               for i in range(0, a.shape[0], rows))
+
+
+def phase_k56_time() -> dict:
+    """K5 and K6 at the JAX package's benchmark sizes (``bench_pallas.py:
+    64-69``: ℓ = 0.1, var = 1.3, diag_add = 0.01 + 1e-6) and at every shape
+    the dense paths give them: each output held against the plain version
+    on the same inputs (max|diff| ≤ K56_RTOL·max|ref|), then both timed in
+    turns, beside the bound and the Cholesky of the same square matrix.
+    The paths' square builds carry σ² + the float32 effective jitter."""
+    from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import (
+        effective_jitter_of_diag,
+    )
+    from gaussianprocessfundamentals_tpu_torch.ops import cuda_dense_gram as dg
+
+    rng = np.random.default_rng(22)
+    bench_diag = 0.01 + 1e-6
+    var = 1.3
+    path_diag = NOISE + float(effective_jitter_of_diag(
+        torch.full((1,), var), 1e-8))
+    part_n = N_PART // 4  # one box of phase 21
+    seg_n, seg_t = N_SEG // S_SEG, T_SEG // S_SEG
+    out = {"K5": {}, "K6": {}, "worst": {"K5": (0.0, 0.0), "K6": (0.0, 0.0)}}
+    for n, m, d, diag, tag in (
+            *((n, n, 1, bench_diag, f"{n}^2") for n in BENCH_N),
+            (N_DENSE, N_DENSE, 1, path_diag, f"{N_DENSE}^2"),
+            (N_DENSE, T_MAIN, 1, 0.0, f"{N_DENSE}x{T_MAIN}"),
+            (seg_n, seg_n, 1, path_diag, f"{seg_n}^2"),
+            (seg_n, seg_t, 1, 0.0, f"{seg_n}x{seg_t}"),
+            (N_MAIN, 256, 1, 0.0, f"{N_MAIN}x256"),
+            (part_n, part_n, 2, path_diag, f"{part_n}^2 d=2"),
+            (part_n, 2000 // 4, 2, 0.0, f"{part_n}x{2000 // 4} d=2")):
+        x1 = torch.tensor(np.sort(rng.uniform(0, 1, (n, d)), axis=0),
+                          dtype=torch.float32).cuda()
+        x2 = x1 if n == m else torch.rand(m, d).cuda()
+        reps = 2 if n * m > 1e9 else 10
+        bound_ms, bound_by = _gram_bound(n, m, d)
+        for name, fn, plain, extra in (
+                ("K5", dg.se_gram, dg.plain_se_gram, {}),
+                ("K6", dg.matern_gram, dg.plain_matern_gram, {"nu": "52"})):
+            if name == "K6" and d > 1:
+                continue  # K6 is the d = 1 Matérn
+            ref = plain(x1, x2, 0.1, var, diag, **extra)
+            K = fn(x1, x2, 0.1, var, diag, **extra)
+            torch.cuda.synchronize()
+            err, scale = _max_abs_diff(K, ref), float(ref.abs().max())
+            del ref
+            ok = bool(torch.isfinite(K).all()) and err <= K56_RTOL * scale
+            out["worst"][name] = _worse(out["worst"][name], (err, err / scale))
+            chol_ms = None
+            if n == m:
+                chol_ms = _time_ms(lambda: torch.linalg.cholesky_ex(K),
+                                   1 if n >= 50_000 else 3)
+            del K
+            torch.cuda.empty_cache()
+            ms, plain_ms = _abba_ms(
+                lambda: fn(x1, x2, 0.1, var, diag, **extra),
+                lambda: plain(x1, x2, 0.1, var, diag, **extra), reps)
+            torch.cuda.empty_cache()
+            log(f"[time] {name} {tag} diag_add={diag:.6g}: vs plain max|diff| "
+                f"{err:.3e} (limit {K56_RTOL:g} x max|ref| {scale:.3e}) "
+                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}): "
+                f"{100 * bound_ms / ms:.1f}% of the bound; cholesky of the "
+                f"same matrix "
+                f"{'-' if chol_ms is None else f'{chol_ms:.3f} ms'}")
+            if not ok:
+                raise RuntimeError(f"{fn.__name__} disagrees with its plain "
+                                   f"version at {tag}")
+            out[name][tag] = (ms, plain_ms, bound_ms, bound_by, chol_ms)
+        del x1, x2
+        torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_entry(name, source, replaces, by_path, worst, times) -> dict:
     ms, plain_ms, bound_ms, bound_by = times
     return {"name": name, "route": "cuda",
@@ -1230,15 +1703,24 @@ def main() -> None:
     expr_serve = phase_expr_serve(expr_fit)
     expr_time = phase_expr_time(expr_fit["x"])
     _profile_step(_mauna_model, expr_fit["x"], expr_fit["y"], "expr-profile")
+    k56_worst = phase_k56_check()
+    dense = phase_dense_serve()
+    seg = phase_segmented()
+    part = phase_partitioned(seg.pop("segments"))
+    k56_time = phase_k56_time()
     k1_worst = _worse(_worse(k1_worst, main_res["worst"]), fit_time["k1_worst"])
     k2_worst = _worse(k2_worst, fit_time["worst"])
     k3_worst = _worse(k3_worst, expr_time["k3_worst"])
     k4_worst = _worse(k4_worst, expr_time["k4_worst"])
+    k56_worst = {k: _worse(v, k56_time["worst"][k]) for k, v in k56_worst.items()}
+    dense_counts = {k: sum(c[k] for c in dense["counts"].values())
+                    for k in _wrappers()}
     paths = {"posterior": main_res["counts"], "fit": fit_res["counts"],
              "composite_fit": expr_fit["counts"],
-             "composite_posterior": expr_serve["counts"]}
-    by_path = {k: {p: c[k] for p, c in paths.items()}
-               for k in ("K1", "K2", "K3", "K4")}
+             "composite_posterior": expr_serve["counts"],
+             "dense_posterior": dense_counts,
+             "segmented": seg["counts"], "partitioned": part["counts"]}
+    by_path = {k: {p: c[k] for p, c in paths.items()} for k in _wrappers()}
     k1_bound = _bound(N_MAIN, N_MAIN, 1, 256, 4 * N_MAIN * (2 + 256),
                       4 * N_MAIN * 256)
     k3 = _kernel_entry("expr_gram_matvec_cross", "expr_matvec.cu",
@@ -1247,6 +1729,17 @@ def main() -> None:
     k3["ms_by_width"] = {str(r): expr_time[f"k3_{r}"][0] for r in (1, R_CG, 256)}
     k3["bound_ms_by_width"] = {str(r): expr_time[f"k3_{r}"][2]
                                for r in (1, R_CG, 256)}
+    k56 = []
+    for name, fn, line in (("K5", "se_gram", 67), ("K6", "matern_gram", 142)):
+        shapes = k56_time[name]
+        entry = _kernel_entry(fn, "dense_gram.cu", f"pallas_gram.py:{line}",
+                              by_path[name], k56_worst[name],
+                              shapes[f"{N_DENSE}^2"][:4])
+        for i, key in enumerate(("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "cholesky_ms")):
+            entry[f"{key}_by_shape"] = {t: v[i] for t, v in shapes.items()}
+        entry["dense_posterior_ms"] = dense["se" if name == "K5" else "mat52"]
+        k56.append(entry)
     log(smi)
     log(json.dumps({"kernels": [
         _kernel_entry("fused_gram_matvec_cross", "gram_matvec.cu",
@@ -1260,6 +1753,7 @@ def main() -> None:
         _kernel_entry("expr_lowrank_vjp_cross", "expr_vjp.cu",
                       "pallas_expr.py:481", by_path["K4"], k4_worst,
                       expr_time["k4"]),
+        *k56,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

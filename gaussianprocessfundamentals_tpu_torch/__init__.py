@@ -1,18 +1,23 @@
 """gaussianprocessfundamentals_tpu_torch — the PyTorch/CUDA port of the GP engine.
 
-Exact GPs with composite kernels (Sum and Product of SE, periodic, linear,
-Matérn, rational-quadratic, constant and white-noise leaves) and
-constant/linear means, fitted and served at any n. Below 8k training rows ``fit`` runs L-BFGS on the dense
-Cholesky NLL; from there on Adam over the matrix-free iterative NLL (mBCG
-solves, SLQ log-determinant, a low-rank gradient cotangent). Posteriors are
-dense below 20k rows and matrix-free chunked mBCG from there on. Above 40k
-rows K is never formed: its products run in hand-written CUDA kernels on the
-GPU, Gram·V in ``csrc/gram_matvec.cu`` and the gradient's low-rank
-contraction in ``csrc/lowrank_vjp.cu`` for SE and Matérn leaves, and for
-any other expression in kernels generated from its AST
-(``ops/expr_codegen.py`` into ``csrc/expr_matvec.cu`` and
-``csrc/expr_vjp.cu``); in plain PyTorch on the CPU.
-Checkpoints are the JAX package's format, both ways (``save``/``load``).
+Exact GPs with composite kernels (Sum, Product, ChangePoint and Partition
+of SE, periodic, linear, Matérn, rational-quadratic, constant and
+white-noise leaves) and the JAX package's seven means and their operators,
+fitted and served at any n, sampled, and segmented (``BlockwiseGP``,
+``PartitionedGP``, ``fit_segments_vmapped``). Below 8k training rows
+``fit`` runs L-BFGS on the dense Cholesky NLL (or its k-fold mean); from
+there on Adam over the matrix-free iterative NLL (mBCG solves, SLQ
+log-determinant, a low-rank gradient cotangent). Posteriors are dense below
+20k rows and matrix-free chunked mBCG from there on. On the GPU the work
+runs in hand-written CUDA kernels: the dense route's Grams in
+``csrc/dense_gram.cu`` (SE and Matérn leaves, K + (σ² + jitter)·I in one
+pass); above 40k rows, where K is never formed, Gram·V in
+``csrc/gram_matvec.cu`` and the gradient's low-rank contraction in
+``csrc/lowrank_vjp.cu`` for SE and Matérn leaves, and for any Sum/Product
+expression in kernels generated from its AST (``ops/expr_codegen.py`` into
+``csrc/expr_matvec.cu`` and ``csrc/expr_vjp.cu``); in plain PyTorch on the
+CPU. Checkpoints are the JAX package's format, both ways
+(``save``/``load``).
 
 Quick start::
 
@@ -26,8 +31,17 @@ Quick start::
 
 The facade runs on the GPU unless given ``device="cpu"``.
 """
-from gaussianprocessfundamentals_tpu_torch.config import DEFAULT_CONFIG, GPConfig
-from gaussianprocessfundamentals_tpu_torch.fit.fit import FitResult, fit
+from gaussianprocessfundamentals_tpu_torch.config import (
+    DEFAULT_CONFIG,
+    ChangePointGate,
+    GPConfig,
+)
+from gaussianprocessfundamentals_tpu_torch.fit.fit import (
+    FitResult,
+    fit,
+    make_kfold_nll,
+    make_nll,
+)
 from gaussianprocessfundamentals_tpu_torch.kernels.base import (
     Kernel,
     kernel_from_dict,
@@ -44,14 +58,24 @@ from gaussianprocessfundamentals_tpu_torch.kernels.leaves import (
     WhiteNoiseKernel,
 )
 from gaussianprocessfundamentals_tpu_torch.kernels.operators import (
+    ChangePoint,
     Operator,
     Product,
     Sum,
 )
+from gaussianprocessfundamentals_tpu_torch.kernels.partition import (
+    BoxPartitioning,
+    DistancePartitioning,
+    Partition,
+)
 from gaussianprocessfundamentals_tpu_torch.means.functions import (
     ConstantMean,
+    ExponentialMean,
     LinearMean,
+    LogitMean,
+    MeanChangePoint,
     MeanFunction,
+    MeanProduct,
     MeanSum,
     ZeroMean,
     mean_from_dict,
@@ -60,6 +84,8 @@ from gaussianprocessfundamentals_tpu_torch.models.exact import (
     GaussianProcess,
     Posterior,
     posterior,
+    sample_posterior,
+    sample_prior,
 )
 from gaussianprocessfundamentals_tpu_torch.models.iterative import (
     fit_iterative,
@@ -68,10 +94,16 @@ from gaussianprocessfundamentals_tpu_torch.models.iterative import (
     iterative_posterior_chunked,
     iterative_posterior_mean,
 )
+from gaussianprocessfundamentals_tpu_torch.models.segmented import (
+    BlockwiseGP,
+    PartitionedGP,
+    fit_segments_vmapped,
+)
 from gaussianprocessfundamentals_tpu_torch.utils.checkpoint import (
     load,
     params_from_numpy,
     save,
+    stacked_params_from_numpy,
     tree_from_numpy,
 )
 

@@ -2,13 +2,25 @@
 
 Counterpart of ``gaussianprocessfundamentals_tpu/config.py:39``
 (``GPConfig``), with the fields the posterior and fitting paths read: the
-diagonal jitter, the float32 matmul precision, the jitter escalations of
-``fit`` and the dense working-set budget that routes large fits to the
-matrix-free iterative route.
+diagonal jitter, the change-point gate, the float32 matmul precision, the
+jitter escalations of ``fit`` and the dense working-set budget that routes
+large fits to the matrix-free iterative route. ``ChangePointGate`` is the
+JAX package's enum (``config.py:25-35``), with the same value strings, so
+kernel and mean ASTs interchange.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class ChangePointGate(enum.Enum):
+    """Gate of the change-point operators: INDICATOR = hard ``x < cp``,
+    SIGMOID = tanh ramp, APPROX_INDICATOR = steep logistic."""
+
+    INDICATOR = "indicator"
+    SIGMOID = "sigmoid"
+    APPROX_INDICATOR = "approx_indicator"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,6 +29,8 @@ class GPConfig:
 
     # jitter added to every covariance diagonal (reference default 1e-8)
     jitter: float = 1e-8
+    # gate of ChangePoint and MeanChangePoint when none is given
+    cp_gate: ChangePointGate = ChangePointGate.INDICATOR
     # float32 matmul precision the CUDA path requires: "highest" is full
     # float32. TF32 keeps about three decimal digits, which breaks CG
     # residuals and Cholesky-grade posteriors.

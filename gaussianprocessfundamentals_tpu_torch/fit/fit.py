@@ -1,7 +1,8 @@
 """Hyperparameter fitting: Adam and L-BFGS over the NLL, with fit() routing.
 
 Counterpart of ``gaussianprocessfundamentals_tpu/fit/fit.py``: ``FitResult``
-(``:36``), ``make_nll`` (``:56``), ``bounds_projection`` (``:240``),
+(``:36``), ``make_nll`` (``:56``, with its ``gram_fn``), ``make_kfold_nll``
+(``:94``), ``bounds_projection`` (``:240``),
 ``init_uparams`` (``:267``), ``adam_run`` (``:292``), ``lbfgs_run``
 (``:315``), ``_fit_iterative_routed`` (``:471``) and ``fit`` (``:556``) with
 its routing: the dense Cholesky NLL below ``_AUTO_ITERATIVE_N`` rows, the
@@ -77,18 +78,64 @@ def _install(kernel, mean, u, optimize_noise, fixed_noise, like):
     return torch.as_tensor(fixed_noise, dtype=like.dtype, device=like.device)
 
 
+def _gram_of(kernel, gram_fn):
+    """The Gram function of an objective: ``gram_fn(kernel, x1, x2)`` reading
+    the kernel's installed hyperparameters (e.g. K5,
+    ``lambda k, a, b: se_gram(a, b, k.lengthscale)``), else ``kernel.gram``
+    under autograd."""
+    if gram_fn is None:
+        return kernel.gram
+    return lambda x1, x2: gram_fn(kernel, x1, x2)
+
+
 def make_nll(kernel, mean: MeanFunction, x, y,
              config: GPConfig = DEFAULT_CONFIG, optimize_noise: bool = False,
-             fixed_noise: float = 0.0) -> Callable:
+             fixed_noise: float = 0.0, gram_fn=None) -> Callable:
     """``nll(u) -> scalar`` over the unconstrained tree ``u``: the dense
     Cholesky NLL of y − m(x) under K + (σ² + jitter)·I. Batched
-    (instance-stacked) problems average, as the JAX package's do."""
+    (instance-stacked) problems average, as the JAX package's do.
+    ``gram_fn(kernel, x1, x2)`` replaces ``kernel.gram``; a forward-only
+    kernel there (K5, K6) evaluates the NLL but raises under a gradient,
+    as the JAX package's Pallas ``gram_fn`` does."""
+    gram = _gram_of(kernel, gram_fn)
 
     def nll_fn(u):
         noise = _install(kernel, mean, u, optimize_noise, fixed_noise, x)
         resid = y - mean.mean(x)
-        out = chol.nll(kernel.gram(x, x), resid, noise, config.jitter)
+        out = chol.nll(gram(x, x), resid, noise, config.jitter)
         return out.mean() if out.ndim else out
+
+    return nll_fn
+
+
+def make_kfold_nll(kernel, mean: MeanFunction, x, y, k: int, perm,
+                   config: GPConfig = DEFAULT_CONFIG,
+                   optimize_noise: bool = False, fixed_noise: float = 0.0,
+                   gram_fn=None) -> Callable:
+    """The k-fold objective: the mean over folds of the NLL on each fold's
+    training rows, one shared hyperparameter set. The Gram is built once
+    per call; the k fold NLLs are one batched masked Cholesky over
+    [k, n, n] (held-out rows decoupled, :func:`..models.segmented.
+    masked_nll`). The split is :func:`..objectives.metrics.kfold_indices`
+    of ``perm``, a permutation of the n rows (where the JAX package takes a
+    key)."""
+    from gaussianprocessfundamentals_tpu_torch.models.segmented import (
+        masked_nll,
+    )
+    from gaussianprocessfundamentals_tpu_torch.objectives.metrics import (
+        kfold_indices,
+    )
+
+    n = x.shape[0]
+    masks = torch.ones((k, n), dtype=x.dtype, device=x.device)
+    for i, (_, test_idx) in enumerate(kfold_indices(n, k, perm)):
+        masks[i, torch.as_tensor(test_idx, device=x.device)] = 0.0
+    gram = _gram_of(kernel, gram_fn)
+
+    def nll_fn(u):
+        noise = _install(kernel, mean, u, optimize_noise, fixed_noise, x)
+        resid = y - mean.mean(x)
+        return masked_nll(gram(x, x), resid, masks, noise, config.jitter).mean()
 
     return nll_fn
 
@@ -158,6 +205,11 @@ def lbfgs_run(nll_fn, u0, max_iters: int = 200, tol: float = 1e-8,
     Stops after ``max_iters`` iterations, when the gradient's 2-norm at
     the current point is ≤ ``tol``, when an iteration moves nothing, or
     when it makes the parameters non-finite (that iteration is undone).
+    A trial point whose NLL is not finite (a Cholesky that failed) is
+    reported to the line search as +inf with a NaN gradient, so it
+    backtracks by bisection, as the JAX package's zoom search does; torch's
+    strong-Wolfe search reads a NaN loss as no failed decrease test and
+    extrapolates, off to infinite parameters.
     Returns (final unconstrained tree, None)."""
     u = leaf_copy(u0, project_fn)
     leaves = tree_leaves(u)
@@ -172,6 +224,13 @@ def lbfgs_run(nll_fn, u0, max_iters: int = 200, tol: float = 1e-8,
         opt.zero_grad()
         loss = nll_fn(u)
         loss.backward()
+        if not bool(torch.isfinite(loss)):
+            # +inf fails the decrease test; the NaN slope makes the
+            # search's cubic step fall back to bisection
+            for p in leaves:
+                if p.grad is not None:
+                    p.grad.fill_(float("nan"))
+            loss = torch.full_like(loss.detach(), float("inf"))
         gnorm = torch.sqrt(sum(torch.sum(p.grad * p.grad) for p in leaves
                                if p.grad is not None))
         evals.append((float(loss.detach()), float(gnorm)))
@@ -253,19 +312,21 @@ def fit(
     dense route), and keeps the best final NLL. A non-finite dense result
     is retried with the jitter ×10, up to ``config.max_jitter_retries``
     times. ``enforce_bounds`` projects the kernel hyperparameters into
-    ``kernel.bounds(xrange, n)`` after every step.
+    ``kernel.bounds(xrange, n)`` after every step. ``gram_fn(kernel, x1,
+    x2)`` replaces ``kernel.gram`` in the objective (:func:`make_nll`);
+    ``kfold > 1`` fits the mean k-fold NLL (:func:`make_kfold_nll`), the
+    split drawn from ``generator`` (required). Both keep the fit on the
+    dense route.
 
     Not ported yet (``NotImplementedError``): ``approximation``,
-    ``n_inducing``, ``optimize_inducing``, ``kfold``, ``gram_fn``, the
-    scipy methods and batched inputs.
+    ``n_inducing``, ``optimize_inducing``, the scipy methods and batched
+    inputs.
     """
     unported = [
         name for name, given in (
             ("approximation", approximation is not None),
             ("n_inducing", n_inducing is not None),
             ("optimize_inducing", optimize_inducing),
-            ("kfold", kfold > 1),
-            ("gram_fn", gram_fn is not None),
             (f"method={method!r}", method.startswith("scipy")),
             ("batched (instance-stacked) input", x.ndim != 2),
         ) if given
@@ -281,9 +342,17 @@ def fit(
     n = x.shape[-2]
     dtype = x.dtype
     # the iterative route would have to clamp a fixed noise this small,
-    # silently solving another model
-    iterative_ok = optimize_noise or float(noise) >= 1e-6
-    dense_bytes = 3 * n * n * x.element_size()
+    # silently solving another model; it has no k-fold objective and no
+    # Gram function but its own
+    blockers = [name for name, given in (
+        ("a fixed noise < 1e-6", not optimize_noise and float(noise) < 1e-6),
+        ("the k-fold objective", kfold > 1),
+        ("a custom gram_fn", gram_fn is not None)) if given]
+    iterative_ok = not blockers
+    if kfold > 1 and generator is None:
+        raise ValueError("fit(kfold>1) needs a generator for the fold split")
+    # the k-fold objective holds one more [n, n] per fold
+    dense_bytes = (3 + (kfold if kfold > 1 else 0)) * n * n * x.element_size()
     dense_feasible = dense_bytes <= config.dense_hbm_budget
     route_iterative = False
     if method == "auto":
@@ -297,9 +366,9 @@ def fit(
                 f"fit(method={method!r}) at n={n} needs a dense working set "
                 f"of ~{dense_bytes / 1e9:.1f} GB (> budget "
                 f"{config.dense_hbm_budget / 1e9:.1f} GB, "
-                "config.dense_hbm_budget), and a fixed noise < 1e-6 keeps it "
-                "off the matrix-free iterative route. Reduce n, optimise the "
-                "noise, or raise config.dense_hbm_budget if the memory "
+                f"config.dense_hbm_budget), and {', '.join(blockers)} keeps "
+                "it off the matrix-free iterative route. Reduce n, optimise "
+                "the noise, or raise config.dense_hbm_budget if the memory "
                 "truly exists."
             )
         warnings.warn(
@@ -326,8 +395,17 @@ def fit(
     inits += [init_uparams(kernel, mean, xrange, n, generator, **start)
               for _ in range(restarts)]
 
+    perm = (torch.randperm(n, generator=generator,
+                           device=generator.device).cpu()
+            if kfold > 1 else None)
+
     def attempt(cfg: GPConfig) -> FitResult:
-        nll_fn = make_nll(kernel, mean, x, y, cfg, optimize_noise, noise)
+        if kfold > 1:
+            nll_fn = make_kfold_nll(kernel, mean, x, y, kfold, perm, cfg,
+                                    optimize_noise, noise, gram_fn)
+        else:
+            nll_fn = make_nll(kernel, mean, x, y, cfg, optimize_noise, noise,
+                              gram_fn)
 
         def run(u0):
             if method == "adam":

@@ -7,7 +7,9 @@ named as in the JAX package (``lengthscale``, ``variance``, ``c``), so
 ``x1: [..., n, d]``, ``x2: [..., m, d]`` to ``[..., n, m]``.
 
 The AST serialises to the same JSON as the JAX package (``to_dict`` /
-``kernel_from_dict``), so one spec builds a kernel in either package; ``+``
+``kernel_from_dict``, a change-point gate as its value string and a
+partitioning model as its dict), so one spec builds a kernel in either
+package; ``+``
 and ``*`` build ``Sum`` and ``Product`` nodes (:mod:`.operators`), flattening
 nested operators of the same type as the JAX package's ``_merge`` does
 (``:200-209``).
@@ -15,13 +17,17 @@ nested operators of the same type as the JAX package's ``_merge`` does
 from __future__ import annotations
 
 import contextlib
+import enum
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_map
+from gaussianprocessfundamentals_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+)
 
 KERNEL_REGISTRY: Dict[str, type] = {}
 
@@ -76,6 +82,10 @@ class HyperparameterModule(nn.Module):
             setattr(self, name, torch.as_tensor(v))
         return self
 
+    def num_params(self) -> int:
+        """The number of scalar hyperparameters (BIC's parameter count)."""
+        return sum(max(1, t.numel()) for t in tree_leaves(self.get_params()))
+
     @contextlib.contextmanager
     def differentiable(self):
         """Install detached leaf copies of the hyperparameters that require
@@ -119,6 +129,42 @@ class ChildParams:
         return {"children": tuple(c.positivity() for c in self.terms)}
 
 
+class LocatedChildParams(ChildParams):
+    """:class:`ChildParams` plus the node's own ``locations``: the sorted-at-
+    use change points on x[:, 0] of ``ChangePoint`` and ``MeanChangePoint``
+    (``{"children": (p0, …), "locations": [k]}``, the JAX package's tree).
+    The node registers a ``locations`` buffer."""
+
+    def has_params(self):
+        return super().has_params() and self.locations is not None
+
+    def get_params(self):
+        return {**super().get_params(), "locations": self.locations}
+
+    def set_params(self, params):
+        params = dict(params)
+        if "locations" not in params:
+            raise KeyError(f"{type(self).__name__} takes params "
+                           "{'children': (...), 'locations': [k]}")
+        locations = params.pop("locations")
+        super().set_params(params)
+        self.locations = torch.as_tensor(locations)
+        return self
+
+    def init_params(self, xrange=None, n: int = 0, generator=None, dtype=None):
+        """The children's, and k = len(children) − 1 locations evenly
+        spaced inside the range of x[:, 0] (default [0, 1])."""
+        p = super().init_params(xrange, n, generator, dtype)
+        xr = _as_xrange(xrange if xrange is not None else [[0.0, 1.0]])
+        k = len(self.terms) - 1
+        p["locations"] = torch.as_tensor(
+            np.linspace(xr[0, 0], xr[0, 1], k + 2)[1:-1], dtype=_dt(dtype))
+        return p
+
+    def positivity(self):
+        return {**super().positivity(), "locations": False}
+
+
 class Kernel(HyperparameterModule):
     """Abstract kernel-expression node.
 
@@ -128,6 +174,8 @@ class Kernel(HyperparameterModule):
 
     _AST_FIELDS: Tuple[str, ...] = ()
     _SEP = ""  # an operator's infix in str() and canonical_str()
+    # Sum and Product: canonical_str sorts the children's forms
+    _COMMUTATIVE = False
 
     # --- evaluation ------------------------------------------------------
     def gram(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -179,7 +227,8 @@ class Kernel(HyperparameterModule):
     def to_dict(self) -> dict:
         d = {"type": type(self).__name__}
         for name in self._AST_FIELDS:
-            d[name] = getattr(self, name)
+            v = getattr(self, name)
+            d[name] = v.value if isinstance(v, enum.Enum) else v
         if self.terms:
             d["children"] = [c.to_dict() for c in self.terms]
         return d
@@ -191,13 +240,17 @@ class Kernel(HyperparameterModule):
         """Canonical string form (``kernels/base.py:156-174`` of the JAX
         package): a leaf is its name, with ``~s`` when scaled; a Sum or
         Product sorts its children's forms, so expressions equal up to the
-        order of their arguments share one string. Not a key for anything
+        order of their arguments share one string; any other operator is
+        ``Name(child, …)`` in its children's order, which for ChangePoint
+        and Partition is the order of the segments. Not a key for anything
         that depends on the parameter order."""
         name = type(self).__name__.replace("Kernel", "")
         if not self.terms:
             return name + ("~s" if getattr(self, "scaled", False) else "")
-        parts = sorted(c.canonical_str() for c in self.terms)
-        return "(" + self._SEP.join(parts) + ")"
+        parts = [c.canonical_str() for c in self.terms]
+        if self._COMMUTATIVE:
+            return "(" + self._SEP.join(sorted(parts)) + ")"
+        return name + "(" + ", ".join(parts) + ")"
 
 
 def kernel_from_dict(d: dict) -> Kernel:
@@ -212,6 +265,16 @@ def kernel_from_dict(d: dict) -> Kernel:
         )
     if "children" in d:
         d["children"] = tuple(kernel_from_dict(c) for c in d["children"])
+    if isinstance(d.get("model"), dict):
+        from gaussianprocessfundamentals_tpu_torch.kernels.partition import (
+            partitioning_from_dict,
+        )
+
+        d["model"] = partitioning_from_dict(d["model"])
+    if isinstance(d.get("gate"), str):
+        from gaussianprocessfundamentals_tpu_torch.config import ChangePointGate
+
+        d["gate"] = ChangePointGate(d["gate"])
     return KERNEL_REGISTRY[name](**d)
 
 

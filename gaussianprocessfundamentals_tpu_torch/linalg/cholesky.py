@@ -26,9 +26,17 @@ def effective_jitter(K: torch.Tensor, jitter, eps_factor: float = 100.0):
 
     A fixed 1e-8 assumes float64; a float32 Gram carries O(eps·‖K‖)
     rounding, under which 1e-8 underflows and the factorisation fails."""
-    eps = torch.finfo(K.dtype).eps
-    mean_diag = torch.diagonal(K, dim1=-2, dim2=-1).mean(dim=-1).detach()
-    return torch.clamp_min(eps_factor * eps * mean_diag, jitter)
+    return effective_jitter_of_diag(torch.diagonal(K, dim1=-2, dim2=-1),
+                                    jitter, eps_factor)
+
+
+def effective_jitter_of_diag(diag_K: torch.Tensor, jitter,
+                             eps_factor: float = 100.0):
+    """:func:`effective_jitter` from diag(K) alone ([..., n]): what a Gram
+    Gram kernel that adds the noise in its own pass needs before K exists."""
+    eps = torch.finfo(diag_K.dtype).eps
+    return torch.clamp_min(eps_factor * eps * diag_K.mean(dim=-1).detach(),
+                           jitter)
 
 
 def noised(K: torch.Tensor, noise, jitter: float) -> torch.Tensor:
@@ -45,7 +53,13 @@ class CholState(NamedTuple):
 
 
 def factor(K: torch.Tensor, y: torch.Tensor, noise, jitter: float) -> CholState:
-    L = torch.linalg.cholesky(noised(K, noise, jitter))
+    return factor_noised(noised(K, noise, jitter), y)
+
+
+def factor_noised(Kn: torch.Tensor, y: torch.Tensor) -> CholState:
+    """:func:`factor` of a matrix that already carries its noise and jitter
+    (Kₙ = K + (σ² + jitter)·I, as the dense Gram kernels build it)."""
+    L = torch.linalg.cholesky(Kn)
     z = torch.linalg.solve_triangular(L, y[..., None], upper=False)
     alpha = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
     logdet = 2.0 * torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(dim=-1)
@@ -93,7 +107,13 @@ class _MLLCore(torch.autograd.Function):
 
 def mll(K: torch.Tensor, y: torch.Tensor, noise, jitter: float) -> torch.Tensor:
     """Log marginal likelihood of y under K + (σ² + jitter)·I."""
-    return _MLLCore.apply(noised(K, noise, jitter), y)
+    return mll_noised(noised(K, noise, jitter), y)
+
+
+def mll_noised(Kn: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Log marginal likelihood of y under a matrix that already carries its
+    noise and jitter."""
+    return _MLLCore.apply(Kn, y)
 
 
 def nll(K: torch.Tensor, y: torch.Tensor, noise, jitter: float) -> torch.Tensor:
@@ -107,10 +127,11 @@ def posterior_mean(state: CholState, K_s: torch.Tensor) -> torch.Tensor:
 
 
 def posterior_cov(state: CholState, K_s: torch.Tensor,
-                  K_ss: torch.Tensor) -> torch.Tensor:
-    """Σ* = K_ss − vᵀv with v = L⁻¹K_s."""
+                  K_ss: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Σ* = K_ss − vᵀv with v = L⁻¹K_s, plus jitter·I when given."""
     v = torch.linalg.solve_triangular(state.L, K_s, upper=False)
-    return K_ss - v.mT @ v
+    cov = K_ss - v.mT @ v
+    return add_diag(cov, jitter) if jitter else cov
 
 
 def posterior_var(state: CholState, K_s: torch.Tensor,

@@ -1,13 +1,18 @@
 """Mean functions of the PyTorch port.
 
 Counterpart of ``gaussianprocessfundamentals_tpu/means/functions.py``:
-``MeanFunction`` with ``+`` (``:54``), ``mean_from_dict`` (``:82``),
-``ZeroMean`` (``:92``), ``ConstantMean`` (``:112``), ``LinearMean``
-(``:131``) and the ``MeanSum`` operator (``:199-227``). ``mean(x)`` maps
-``x: [..., n, d]`` to ``[..., n]``. Like kernels, means are ``nn.Module``s
-holding their own parameters (a ``MeanSum`` holds them in its children);
-the JSON form, the params trees (``{"children": (p0, p1)}`` for a sum),
-defaults and positivity are the JAX package's.
+``MeanFunction`` with ``+`` and ``*`` (``:54-80``), ``mean_from_dict``
+(``:82``), ``ZeroMean``, ``ConstantMean``, ``LinearMean``,
+``ExponentialMean`` and ``LogitMean`` (``:92-195``), and the operators
+``MeanSum``, ``MeanProduct`` and ``MeanChangePoint`` (``:198-274``).
+``mean(x)`` maps ``x: [..., n, d]`` to ``[..., n]``. Like kernels, means
+are ``nn.Module``s holding their own parameters (an operator holds them in
+its children); the JSON form, the params trees (``{"children": (p0, p1)}``
+for an operator, plus ``"locations"`` for a change point), defaults and
+positivity are the JAX package's. One difference: a ``MeanChangePoint``'s
+gate is written to JSON as its value string and read back as the enum, as
+kernels do; the JAX package writes the enum itself, which ``json`` cannot
+serialise, and reads a string back without converting it.
 """
 from __future__ import annotations
 
@@ -17,9 +22,14 @@ from typing import Dict
 import torch
 from torch import nn
 
+from gaussianprocessfundamentals_tpu_torch.config import (
+    DEFAULT_CONFIG,
+    ChangePointGate,
+)
 from gaussianprocessfundamentals_tpu_torch.kernels.base import (
     ChildParams,
     HyperparameterModule,
+    LocatedChildParams,
     _dt,
 )
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_map
@@ -62,17 +72,20 @@ class MeanFunction(HyperparameterModule):
                 tree_map(lambda _: math.inf, pos))
 
     def __add__(self, other):
-        return MeanSum(children=_merge_sum(self, other))
+        return MeanSum(children=_merge_means(self, other, MeanSum))
+
+    def __mul__(self, other):
+        return MeanProduct(children=_merge_means(self, other, MeanProduct))
 
     def to_dict(self) -> dict:
         return {"type": type(self).__name__, "dim": self.dim}
 
 
-def _merge_sum(a, b):
-    """Flatten nested sums, as the JAX package does."""
+def _merge_means(a, b, op_cls):
+    """Flatten nested operators of one type, as the JAX package does."""
     out = []
     for m in (a, b):
-        out.extend(m.terms if type(m) is MeanSum else [m])
+        out.extend(m.terms if type(m) is op_cls else [m])
     return tuple(out)
 
 
@@ -86,6 +99,8 @@ def mean_from_dict(d: dict) -> MeanFunction:
         )
     if "children" in d:
         d["children"] = tuple(mean_from_dict(c) for c in d["children"])
+    if isinstance(d.get("gate"), str):
+        d["gate"] = ChangePointGate(d["gate"])
     return MEAN_REGISTRY[name](**d)
 
 
@@ -137,15 +152,69 @@ class LinearMean(MeanFunction):
 
 
 @register_mean
-class MeanSum(ChildParams, MeanFunction):
-    """m = Σᵢ mᵢ; its params tree is ``{"children": (p0, p1, ...)}`` and
-    each child module holds its own."""
+class ExponentialMean(MeanFunction):
+    """m(x) = base^(Σ_d (scale_d·x_d − shift_d)); defaults scale = 1,
+    shift = 0, base = e; random init scale + 0.1·N(0, 1)."""
+
+    def param_names(self):
+        return ("scale", "shift", "base")
+
+    def mean(self, x):
+        expo = torch.sum(x * self.scale - self.shift, dim=-1)
+        return torch.pow(self.base, expo)
+
+    def init_params(self, xrange=None, n=0, generator=None, dtype=None):
+        scale = torch.ones((self.dim,), dtype=torch.float64)
+        if generator is not None:
+            scale = scale + 0.1 * torch.randn((self.dim,), generator=generator,
+                                              dtype=torch.float64)
+        return {"scale": scale.to(_dt(dtype)),
+                "shift": torch.zeros((self.dim,), dtype=_dt(dtype)),
+                "base": torch.tensor(math.e, dtype=_dt(dtype))}
+
+    def positivity(self):
+        return {"scale": False, "shift": False, "base": True}
+
+
+@register_mean
+class LogitMean(MeanFunction):
+    """m(x) = max / (1 + exp(Σ_d (steep_d·x_d − shift_d))); defaults
+    steepness = −1, shift = 0, max = 1."""
+
+    def param_names(self):
+        return ("steepness", "shift", "max_value")
+
+    def mean(self, x):
+        z = torch.sum(x * self.steepness - self.shift, dim=-1)
+        return self.max_value / (1.0 + torch.exp(z))
+
+    def init_params(self, xrange=None, n=0, generator=None, dtype=None):
+        return {"steepness": torch.full((self.dim,), -1.0, dtype=_dt(dtype)),
+                "shift": torch.zeros((self.dim,), dtype=_dt(dtype)),
+                "max_value": torch.tensor(1.0, dtype=_dt(dtype))}
+
+    def positivity(self):
+        return {"steepness": False, "shift": False, "max_value": True}
+
+
+class MeanOperator(ChildParams, MeanFunction):
+    """A mean over child means (``terms``, the JAX package's ``children``:
+    that name is nn.Module's own iterator over submodules); its params tree
+    is ``{"children": (p0, p1, ...)}`` and each child module holds its
+    own."""
 
     def __init__(self, children=(), dim: int = 1):
         super().__init__(dim)
-        # ``terms``, not the JAX package's ``children``: that name is
-        # nn.Module's own iterator over submodules
         self.terms = nn.ModuleList(children)
+
+    def to_dict(self):
+        return {"type": type(self).__name__, "dim": self.dim,
+                "children": [c.to_dict() for c in self.terms]}
+
+
+@register_mean
+class MeanSum(MeanOperator):
+    """m = Σᵢ mᵢ."""
 
     def mean(self, x):
         out = self.terms[0].mean(x)
@@ -153,6 +222,42 @@ class MeanSum(ChildParams, MeanFunction):
             out = out + c.mean(x)
         return out
 
+
+@register_mean
+class MeanProduct(MeanOperator):
+    """m = ∏ᵢ mᵢ."""
+
+    def mean(self, x):
+        out = self.terms[0].mean(x)
+        for c in self.terms[1:]:
+            out = out * c.mean(x)
+        return out
+
+
+@register_mean
+class MeanChangePoint(LocatedChildParams, MeanOperator):
+    """m = Σᵢ wᵢ(x)·mᵢ(x), the change-point weights of
+    :func:`..kernels.operators.changepoint_weights` over the sorted
+    ``locations``."""
+
+    def __init__(self, children=(), dim: int = 1,
+                 gate: ChangePointGate = DEFAULT_CONFIG.cp_gate):
+        super().__init__(children, dim)
+        self.gate = ChangePointGate(gate)
+        self.register_buffer("locations", None)
+
+    def mean(self, x):
+        from gaussianprocessfundamentals_tpu_torch.kernels.operators import (
+            changepoint_weights,
+        )
+
+        w = changepoint_weights(x, torch.sort(self.locations).values,
+                                self.gate)
+        out = None
+        for i, c in enumerate(self.terms):
+            mi = c.mean(x) * w[..., i]
+            out = mi if out is None else out + mi
+        return out
+
     def to_dict(self):
-        return {"type": "MeanSum", "dim": self.dim,
-                "children": [c.to_dict() for c in self.terms]}
+        return {**super().to_dict(), "gate": self.gate.value}

@@ -4,8 +4,15 @@ Counterpart of ``gaussianprocessfundamentals_tpu/models/exact.py``:
 ``Posterior`` (``:33``), the ``posterior`` router (``:44``) with the same
 dense→iterative threshold, ``_posterior_dense`` (``:128``) and the
 ``GaussianProcess`` facade (``:192``) with ``fit`` (``:218``, the routed
-:func:`..fit.fit.fit` or ``method="iterative"``) and
-``log_marginal_likelihood`` (``:314``). Sampling is not ported yet.
+:func:`..fit.fit.fit` or ``method="iterative"``), ``log_marginal_likelihood``
+(``:314``) and prior and posterior sampling (``:151-188``, ``:300-312``).
+
+Every Gram the dense route builds goes through
+:func:`..ops.cuda_dense_gram.dense_gram_for`: on a card the SE and Matérn
+leaves take the Gram kernels K5 and K6, K + (σ² + jitter)·I in one pass.
+Sampling takes an explicit ``torch.Generator``; its normal draws are an
+argument of the inner functions (:func:`prior_draws`,
+:func:`posterior_draws`), so the tests hand both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -27,6 +34,10 @@ from gaussianprocessfundamentals_tpu_torch.means.functions import (
 from gaussianprocessfundamentals_tpu_torch.models.iterative import (
     fit_iterative,
     iterative_posterior_chunked,
+)
+from gaussianprocessfundamentals_tpu_torch.ops.cuda_dense_gram import (
+    dense_gram_for,
+    noised_gram,
 )
 
 # posterior() switches from the dense Cholesky to the matrix-free chunked
@@ -102,13 +113,14 @@ def posterior(
 def _posterior_dense(kernel, x_train, y_train, x_test, noise, jitter, mean,
                      full_cov):
     resid = y_train - mean.mean(x_train)
-    K = kernel.gram(x_train, x_train)
-    state = chol.factor(K, resid, noise, jitter)
-    K_s = kernel.gram(x_train, x_test)
+    state = chol.factor_noised(noised_gram(kernel, x_train, noise, jitter),
+                               resid)
+    K_s = dense_gram_for(kernel, x_train, x_test)
     post_mu = chol.posterior_mean(state, K_s)
     mean_mu = mean.mean(x_test)
     if full_cov:
-        cov = chol.posterior_cov(state, K_s, kernel.gram(x_test, x_test))
+        cov = chol.posterior_cov(state, K_s,
+                                 dense_gram_for(kernel, x_test, x_test))
         var = torch.diagonal(cov, dim1=-2, dim2=-1)
         sd = torch.sqrt(torch.clamp_min(var, 0.0))
         return Posterior(mean_mu + post_mu, var, sd, mean_mu, post_mu), cov
@@ -116,6 +128,73 @@ def _posterior_dense(kernel, x_train, y_train, x_test, noise, jitter, mean,
         chol.posterior_var(state, K_s, kernel.diag(x_test)), 0.0
     )
     return Posterior(mean_mu + post_mu, var, torch.sqrt(var), mean_mu, post_mu)
+
+
+def _cholesky_escalating(A: torch.Tensor, jitter: float, retries: int,
+                         carried: float = 0.0) -> torch.Tensor:
+    """The lower Cholesky factor of A + j·I for the first j in jitter·10ᵏ,
+    k = 0..retries, whose factorisation succeeds, as ``fit`` escalates the
+    NLL's jitter; ``carried`` is what A's diagonal already holds. In
+    float64 the first try succeeds for a positive-definite A; a float32
+    posterior covariance K_ss − vᵀv carries O(eps·k_ss) rounding that the
+    first jitters do not cover."""
+    j = jitter
+    for _ in range(retries + 1):
+        shifted = A if j == carried else chol.add_diag(A, j - carried)
+        L, info = torch.linalg.cholesky_ex(shifted)
+        if not bool((info != 0).any()):
+            return L
+        j *= 10.0
+    raise torch.linalg.LinAlgError(
+        f"no Cholesky factor up to jitter {j / 10.0:.1e}: the covariance is "
+        "not positive definite at this precision")
+
+
+def prior_draws(kernel, x: torch.Tensor, z: torch.Tensor,
+                jitter: float = DEFAULT_CONFIG.jitter,
+                retries: int = DEFAULT_CONFIG.max_jitter_retries):
+    """f = L·z with L = chol(K(x, x) + jitter·I): z [s, n] standard-normal
+    draws → [s, n]."""
+    K = dense_gram_for(kernel, x, x, jitter)
+    L = _cholesky_escalating(K, jitter, retries, carried=jitter)
+    return torch.einsum("nm,sm->sn", L, z)
+
+
+def _normal(shape, generator, like: torch.Tensor) -> torch.Tensor:
+    dev = generator.device if generator is not None else like.device
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=dev).to(like.device)
+
+
+@torch.no_grad()
+def sample_prior(kernel, x: torch.Tensor, generator=None,
+                 num_samples: int = 1, jitter: float = DEFAULT_CONFIG.jitter):
+    """f ~ N(0, K(x, x)): ``num_samples`` draws [s, n], the normals from
+    ``generator`` (or the global stream of x's device)."""
+    return prior_draws(kernel, x, _normal((num_samples, x.shape[-2]),
+                                          generator, x), jitter)
+
+
+def posterior_draws(kernel, x_train, y_train, x_test, noise, z,
+                    jitter: float = DEFAULT_CONFIG.jitter, mean=None,
+                    retries: int = DEFAULT_CONFIG.max_jitter_retries):
+    """f* = μ* + L·z with L = chol(Σ* + jitter·I) of the dense posterior at
+    x_test: z [s, t] standard-normal draws → [s, t]."""
+    post, cov = posterior(kernel, x_train, y_train, x_test, noise, jitter,
+                          mean, full_cov=True)
+    L = _cholesky_escalating(cov, jitter, retries)
+    return post.mean + torch.einsum("nm,sm->sn", L, z)
+
+
+@torch.no_grad()
+def sample_posterior(kernel, x_train, y_train, x_test, noise, generator=None,
+                     num_samples: int = 1,
+                     jitter: float = DEFAULT_CONFIG.jitter, mean=None):
+    """f* ~ N(μ*, Σ*) at x_test: ``num_samples`` draws [s, t], the normals
+    from ``generator`` (or the global stream of x's device)."""
+    z = _normal((num_samples, x_test.shape[-2]), generator, x_test)
+    return posterior_draws(kernel, x_train, y_train, x_test, noise, z,
+                           jitter, mean)
 
 
 def _check_matmul_precision(config: GPConfig) -> None:
@@ -195,8 +274,9 @@ class GaussianProcess:
         installed hyperparameters (an [n, n] Gram: small n)."""
         self._ensure_params()
         resid = self.y_train - self.mean.mean(self.x_train)
-        K = self.kernel.gram(self.x_train, self.x_train)
-        return chol.mll(K, resid, self.noise, self.config.jitter)
+        Kn = noised_gram(self.kernel, self.x_train, self.noise,
+                         self.config.jitter)
+        return chol.mll_noised(Kn, resid)
 
     def _ensure_params(self):
         if self.x_train is None:
@@ -220,14 +300,33 @@ class GaussianProcess:
         self._ensure_params()
         if self.device.type == "cuda":
             _check_matmul_precision(self.config)
-        x_test = torch.as_tensor(x_test, device=self.device,
-                                 dtype=self.x_train.dtype)
         return posterior(
-            self.kernel, self.x_train, self.y_train, x_test, self.noise,
-            self.config.jitter, self.mean, full_cov=full_cov, method=method,
+            self.kernel, self.x_train, self.y_train, self._as_x(x_test),
+            self.noise, self.config.jitter, self.mean, full_cov=full_cov,
+            method=method,
         )
 
     def predict(self, x_test):
         """(full μ, mean-function μ, posterior μ), the reference's triple."""
         post = self.posterior(x_test)
         return post.mean, post.mean_fn_mu, post.posterior_mu
+
+    def _as_x(self, x):
+        return torch.as_tensor(x, device=self.device, dtype=self.x_train.dtype)
+
+    def sample_prior(self, x, generator=None, num_samples: int = 1):
+        """Draws [s, n] of the prior at x (the kernel only, no mean)."""
+        self._ensure_params()
+        if self.device.type == "cuda":
+            _check_matmul_precision(self.config)
+        return sample_prior(self.kernel, self._as_x(x), generator,
+                            num_samples, self.config.jitter)
+
+    def sample_posterior(self, x_test, generator=None, num_samples: int = 1):
+        """Draws [s, t] of the dense posterior at x_test, mean included."""
+        self._ensure_params()
+        if self.device.type == "cuda":
+            _check_matmul_precision(self.config)
+        return sample_posterior(
+            self.kernel, self.x_train, self.y_train, self._as_x(x_test),
+            self.noise, generator, num_samples, self.config.jitter, self.mean)

@@ -15,7 +15,10 @@ Counterpart of ``gaussianprocessfundamentals_tpu/models/iterative.py``:
 Above 40k rows K is never formed: every Kₙ·V goes through
 :func:`..ops.cuda_gram.fused_matvec_for` (K1) and the gradient's low-rank
 contraction through :func:`..ops.cuda_lrvjp.fused_lowrank_vjp_for` (K2),
-the CUDA kernels on a card and their plain versions on the CPU.
+the CUDA kernels on a card and their plain versions on the CPU. A
+posterior's cross-covariance K_s, one [n, chunk] block per test chunk, is
+built by :func:`..ops.cuda_dense_gram.dense_gram_for` (K5 or K6 for SE and
+Matérn leaves on a card).
 
 The NLL's probes are arguments of :func:`_core_impl` (u [n, s] and
 w [m, s] standard-normal draws); the public functions draw them from an
@@ -60,6 +63,9 @@ from gaussianprocessfundamentals_tpu_torch.linalg.pivchol import (
 from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
     fused_matvec_cross_for,
     fused_matvec_for,
+)
+from gaussianprocessfundamentals_tpu_torch.ops.cuda_dense_gram import (
+    dense_gram_for,
 )
 from gaussianprocessfundamentals_tpu_torch.ops.cuda_lrvjp import (
     fused_lowrank_vjp_for,
@@ -512,7 +518,7 @@ def iterative_posterior(
     energy form at the price of one extra Kₙ·V."""
     noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device)
     matvec = _posterior_matvec(kernel, x, noise)
-    K_s = kernel.gram(x, x_test)  # [n, t]
+    K_s = dense_gram_for(kernel, x, x_test)  # [n, t]
     B = torch.cat([y[:, None], K_s], dim=1)
     res = mbcg(matvec, B, max_iters=max_iters, tol=tol,
                precond=_posterior_precond(kernel, x, noise, precond_m),
@@ -545,7 +551,7 @@ def _posterior_setup(kernel, x, y, noise, m, max_iters, tol):
 def _posterior_chunk(kernel, x, alpha, xt, noise, W_b, d_rng, max_iters, tol):
     """One test-point chunk, reusing the prebuilt basis and y-solve."""
     matvec = _posterior_matvec(kernel, x, noise)
-    K_s = kernel.gram(x, xt)  # [n, c]
+    K_s = dense_gram_for(kernel, x, xt)  # [n, c]
     res = mbcg(matvec, K_s, max_iters=max_iters, tol=tol,
                precond=functools.partial(apply_P_inv, W_b, d_rng, noise),
                early_exit=True)

@@ -112,6 +112,10 @@ def unsupported(kernel, d: int) -> Optional[str]:
                 if why:
                     return why
             return None
+        if k.terms:
+            return (f"{type(k).__name__} is an operator the tile code does "
+                    f"not evaluate (covered: {COVERED}; the JAX package "
+                    "streams it through XLA)")
         if type(k) not in LEAF_KINDS:
             where = (" below the root Sum" if type(k) is lv.WhiteNoiseKernel
                      else "")

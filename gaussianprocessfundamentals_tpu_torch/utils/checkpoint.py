@@ -7,7 +7,11 @@ path: ``k:['lengthscale']``,
 ``utils/checkpoint.py:36-94`` there). :func:`load` reads both with ``json``
 and ``numpy`` only and installs the values in the port's modules;
 :func:`save` writes the same two files from the modules, so a fit from
-either package loads in the other.
+either package loads in the other. Change points' ``locations`` are leaves
+like any other (``k:['locations']``), and a Partition's model is part of
+its AST. :func:`stacked_params_from_numpy` reads the JAX package's
+per-segment parameters stacked on a leading axis (what its
+``fit_segments_vmapped`` returns) into the port's tree of the same layout.
 """
 from __future__ import annotations
 
@@ -79,6 +83,18 @@ def tree_from_numpy(params: dict, device=None, dtype=None) -> dict:
         lambda v: torch.tensor(np.asarray(v), device=device, dtype=dtype),
         _tuples(tree),
     )
+
+
+def stacked_params_from_numpy(module, params: dict, device=None,
+                              dtype=None) -> dict:
+    """The JAX package's per-segment parameters stacked on a leading axis S
+    (as its ``fit_segments_vmapped`` returns them, numpy or JAX arrays, a
+    params tree or flat keys as :func:`tree_from_numpy` takes) as the
+    port's tree shaped like ``module.get_params()``, every leaf [S, ...]:
+    what :func:`..models.segmented.fit_segments_vmapped` returns and
+    :func:`..models.segmented.segmented_nll` takes. Nothing is
+    installed."""
+    return _like(module.get_params(), tree_from_numpy(params, device, dtype))
 
 
 def params_from_numpy(module, params: dict, device=None, dtype=None):

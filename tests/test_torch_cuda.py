@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: K1 (Gram·V), K2 (the low-rank-cotangent
-gradient) and the composite-expression kernels K3 and K4. Marked ``cuda``:
+gradient), the composite-expression kernels K3 and K4, and the dense Gram
+kernels K5 and K6 with the dense route around them. Marked ``cuda``:
 skipped where no GPU is present, run on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -7,7 +8,8 @@ skipped where no GPU is present, run on one with
 (``--noconftest``: the suite's conftest pins JAX, which the GPU machine
 need not have; this file imports no JAX). K1's tolerances are those of
 ``test_torch_gram_matvec.py``, K2's those of ``test_torch_lowrank_vjp.py``,
-K3's and K4's those of ``chip_smoke.py`` phases 11 and 12.
+K3's and K4's those of ``chip_smoke.py`` phases 11 and 12, K5's and K6's
+the JAX gates ``se_gram_*`` and ``matern*_gram_d1`` (2e-5·max|ref|).
 """
 import copy
 
@@ -15,7 +17,9 @@ import pytest
 import torch
 
 import gaussianprocessfundamentals_tpu_torch as gpt
+from gaussianprocessfundamentals_tpu_torch.models.exact import prior_draws
 from gaussianprocessfundamentals_tpu_torch.ops import (
+    cuda_dense_gram,
     cuda_expr,
     cuda_gram,
     cuda_lrvjp,
@@ -398,3 +402,139 @@ def test_cross_router_with_white_noise_on_card(cuda):
     assert cuda_expr.expr_gram_matvec_cross.launches == before + 1
     ref = kernel.gram(xt, x) @ V
     assert float((got - ref).abs().max()) <= 5e-5 * float(ref.abs().max())
+
+
+# --- K5 and K6: the dense Gram kernels --------------------------------------
+
+@pytest.mark.parametrize("kind,d", [("se", 1), ("se", 2), ("se", 3), ("se", 5),
+                                    ("se", 8), ("32", 1), ("52", 1)])
+@pytest.mark.parametrize("n,m,diag_add", [(700, 700, 0.0), (700, 700, 0.25),
+                                          (333, 1001, 0.25), (1001, 258, 0.0)])
+def test_dense_gram_matches_plain_on_card(cuda, kind, d, n, m, diag_add):
+    """Square and cross, m a multiple of 4 (float4 stores) and not, with
+    the diagonal on global row = column."""
+    g = torch.Generator().manual_seed(n + m + d)
+    x1 = torch.rand(n, d, generator=g).to(cuda)
+    x2 = x1 if n == m else torch.rand(m, d, generator=g).to(cuda)
+    if kind == "se":
+        fn, plain, extra = (cuda_dense_gram.se_gram,
+                            cuda_dense_gram.plain_se_gram, {})
+    else:
+        fn, plain, extra = (cuda_dense_gram.matern_gram,
+                            cuda_dense_gram.plain_matern_gram, {"nu": kind})
+    before = fn.launches
+    got = fn(x1, x2, 0.3, 1.3, diag_add, **extra)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(x1, x2, 0.3, 1.3, diag_add, **extra)
+    assert got.shape == (n, m) and torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+def test_dense_gram_refuses_what_it_does_not_cover(cuda):
+    x = torch.rand(10, 2, device=cuda)
+    with pytest.raises(NotImplementedError, match="d = 1"):
+        cuda_dense_gram.matern_gram(x, x, 0.3)
+    with pytest.raises(NotImplementedError, match="d <= 8"):
+        x9 = torch.rand(10, 9, device=cuda)
+        cuda_dense_gram.se_gram(x9, x9, 0.3)
+    with pytest.raises(TypeError):
+        cuda_dense_gram.se_gram(x.double(), x.double(), 0.3)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        cuda_dense_gram.se_gram(x.clone().requires_grad_(), x, 0.3)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cuda_dense_gram.se_gram(x, x.cpu(), 0.3)
+
+
+def test_dense_router_routes_by_kernel_type_and_dtype(cuda):
+    x = torch.rand(300, 2, device=cuda)
+    se = gpt.SquaredExponentialKernel(dim=2, scaled=True).set_params({
+        "lengthscale": torch.tensor([0.2, 0.5]), "variance": torch.tensor(0.7)})
+    se = se.to(cuda)
+    before = cuda_dense_gram.se_gram.launches
+    got = cuda_dense_gram.dense_gram_for(se, x, x, 0.1)
+    assert cuda_dense_gram.se_gram.launches == before + 1
+    ref = se.gram(x, x) + 0.1 * torch.eye(300, device=cuda)
+    assert float((got - ref).abs().max()) <= 2e-5
+    # float64 and composites take kernel.gram
+    cuda_dense_gram.dense_gram_for(se.double(), x.double(), x.double())
+    composite = (gpt.SquaredExponentialKernel(dim=2)
+                 + gpt.LinearKernel(dim=2)).set_params({"children": (
+                     {"lengthscale": torch.tensor(0.3)},
+                     {"offset": torch.tensor([0.5, 0.5])})}).to(cuda)
+    cuda_dense_gram.dense_gram_for(composite, x, x)
+    assert cuda_dense_gram.se_gram.launches == before + 1
+
+
+def test_dense_posterior_launches_two_gram_kernels(cuda):
+    g = torch.Generator().manual_seed(3)
+    x = torch.sort(torch.rand(2000, 1, generator=g), dim=0).values
+    y = torch.sin(8 * x[:, 0]) + 0.1 * torch.randn(2000, generator=g)
+    k = gpt.Matern52Kernel(scaled=True).set_params(
+        {"lengthscale": torch.tensor(0.1), "variance": torch.tensor(1.0)})
+    gp = gpt.GaussianProcess(k, noise=1e-2).set_data(x, y)
+    xt = torch.linspace(0, 1, 100)[:, None]
+    before = cuda_dense_gram.matern_gram.launches
+    post = gp.posterior(xt)
+    assert cuda_dense_gram.matern_gram.launches == before + 2
+    gp64 = gpt.GaussianProcess(copy.deepcopy(k).double(),
+                               noise=1e-2).set_data(x.double(), y.double())
+    ref = gp64.posterior(xt.double())
+    assert float((post.mean.double() - ref.mean).abs().max()) <= 1e-3
+    # the variance is ~1e-4 of k_ss here: held relative to its own size
+    assert float((post.var.double() - ref.var).abs().max()) <= (
+        0.1 * float(ref.var.abs().max()))
+
+
+def test_dense_router_refuses_hyperparameters_that_require_grad(cuda):
+    """K5/K6 have no VJP: under autograd the router raises rather than
+    hand back a Gram that silently carries no gradient to the kernel."""
+    k = gpt.SquaredExponentialKernel(scaled=True).set_params(
+        {"lengthscale": torch.tensor(0.2), "variance": torch.tensor(1.1)})
+    k = k.to(cuda)
+    x = torch.rand(64, 1, device=cuda)
+    with k.differentiable():
+        with pytest.raises(RuntimeError, match="forward-only"):
+            cuda_dense_gram.dense_gram_for(k, x, x)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            prior_draws(k, x, torch.randn(2, 64, device=cuda))
+        with torch.no_grad():
+            cuda_dense_gram.dense_gram_for(k, x, x)
+
+
+def test_changepoint_and_partition_are_refused_off_the_dense_route(cuda):
+    """The K1/K3 and K2/K4 routers have no tile code for ChangePoint and
+    Partition: they raise and say why, rather than misroute them."""
+    cp = gpt.ChangePoint(children=(gpt.SquaredExponentialKernel(),
+                                   gpt.SquaredExponentialKernel()))
+    part = gpt.Partition(children=(gpt.SquaredExponentialKernel(),
+                                   gpt.SquaredExponentialKernel()),
+                         model=gpt.BoxPartitioning(edges=(0.5,)))
+    x = torch.rand(50, 1, device=cuda)
+    for kernel, name in ((cp, "ChangePoint"), (part, "Partition")):
+        kernel.set_params(kernel.init_params([[0.0, 1.0]], 50)).to(cuda)
+        with pytest.raises(NotImplementedError, match=f"{name} is an operator"):
+            cuda_gram.fused_matvec_for(kernel, x)
+        with pytest.raises(NotImplementedError, match=f"{name} is an operator"):
+            cuda_lrvjp.fused_lowrank_vjp_for(kernel, x)
+        # the dense route serves them through kernel.gram
+        gp = gpt.GaussianProcess(kernel, noise=1e-2).set_data(
+            x, torch.sin(6 * x[:, 0]))
+        assert torch.isfinite(gp.posterior(x[:5]).mean).all()
+
+
+def test_gram_fn_with_k5_evaluates_the_nll_but_not_its_gradient(cuda):
+    x = torch.rand(200, 1, device=cuda)
+    y = torch.sin(6 * x[:, 0])
+    k = gpt.SquaredExponentialKernel().to(cuda)
+    u = {"kernel": {"lengthscale": torch.tensor(-1.5, device=cuda)},
+         "mean": {}}
+    gram_fn = lambda kern, a, b: cuda_dense_gram.se_gram(  # noqa: E731
+        a, b, kern.lengthscale)
+    nll = gpt.make_nll(k, gpt.ZeroMean(), x, y, fixed_noise=0.01,
+                       gram_fn=gram_fn)
+    ref = gpt.make_nll(k, gpt.ZeroMean(), x, y, fixed_noise=0.01)
+    assert abs(float(nll(u)) - float(ref(u))) <= 1e-3 * abs(float(ref(u)))
+    u["kernel"]["lengthscale"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        nll(u).backward()

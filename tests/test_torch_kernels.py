@@ -94,12 +94,13 @@ def test_x_rescale_matches_jax():
 
 
 def test_unported_kernel_type_raises():
-    from gaussianprocessfundamentals_tpu.kernels.operators import ChangePoint
+    """Every kernel type of the JAX package is ported; a type neither
+    package has is refused by name."""
+    from gaussianprocessfundamentals_tpu.kernels.base import KERNEL_REGISTRY
 
-    cp = ChangePoint(children=(gpf.SquaredExponentialKernel(),
-                               gpf.PeriodicKernel()))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        gpt.kernel_from_dict(cp.to_dict())
+    assert set(KERNEL_REGISTRY) <= set(gpt.kernels.base.KERNEL_REGISTRY)
+    with pytest.raises(NotImplementedError, match="'SpectralMixture' is not"):
+        gpt.kernel_from_dict({"type": "SpectralMixture", "dim": 1})
 
 
 def test_set_params_rejects_wrong_names():

@@ -39,6 +39,18 @@ res2 = composite.fit(x, y, method="iterative", steps=3, precond_m=16,
                      max_iters=20, materialize=False)
 post2 = composite.posterior(np.linspace(0, 1, 20, dtype=np.float32)[:, None],
                             method="iterative")
+# the dense route's slice: a change-point segmented GP, sampling, k-fold
+bw = gpt.BlockwiseGP([gpt.SquaredExponentialKernel(scaled=True),
+                      gpt.Matern52Kernel(scaled=True)], locations=[0.5],
+                     device="cpu")
+bw.fit(x, y, optimize_noise=True)
+mu, _, _, var = bw.predict(np.linspace(0, 1, 30, dtype=np.float32)[:, None])
+draws = bw.gps[0].sample_posterior(np.linspace(0, 0.4, 10, dtype=np.float32)[:, None],
+                                   torch.Generator().manual_seed(0), 4)
+cp = gpt.ChangePoint(children=(gpt.SquaredExponentialKernel(),
+                               gpt.PeriodicKernel()))
+kf = gpt.fit(cp, torch.from_numpy(x[:80]), torch.from_numpy(y[:80]), kfold=3,
+             optimize_noise=True, generator=torch.Generator().manual_seed(0))
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
@@ -48,7 +60,11 @@ print(json.dumps({
     "finite": bool(torch.isfinite(post.mean).all() and torch.isfinite(post.var).all()
                    and torch.isfinite(res.history).all()
                    and torch.isfinite(res2.history).all()
-                   and torch.isfinite(post2.mean).all()),
+                   and torch.isfinite(post2.mean).all()
+                   and torch.isfinite(mu).all() and torch.isfinite(var).all()
+                   and torch.isfinite(draws).all()
+                   and bool(np.isfinite(bw.log_marginal_likelihood()))
+                   and bool(np.isfinite(kf.nll_post))),
     "fit_steps": len(res.history) + len(res2.history),
 }))
 """
@@ -57,7 +73,9 @@ print(json.dumps({
 def test_port_imports_and_serves_without_jax():
     """Also 3-step iterative fits on the streamed route, of an SE kernel
     (K1 + K2 plain) and of the Mauna Loa composite (K3 + K4 plain), and the
-    composite's posterior."""
+    composite's posterior; a BlockwiseGP fit, prediction and log marginal
+    likelihood on the dense route (K5 + K6 plain), posterior draws, and a
+    k-fold fit of a ChangePoint kernel."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests
