@@ -15,11 +15,17 @@ non-zero):
    cotangent gradient (K2, csrc/lowrank_vjp.cu), the dense Gram kernels
    (K5 and K6, csrc/dense_gram.cu), and the composite-expression Gram·V
    (K3, csrc/expr_matvec.cu) and gradient (K4, csrc/expr_vjp.cu) compiled
-   with the code generated for each expression of phases 11-17, sm_90a;
+   with the code generated for each expression of phases 11-17, sm_90a
+   (K1 and K3 share the tile loop of csrc/gram_mma.cuh); then ptxas's
+   registers, stack and spills of every K1 and K3 instantiation, and a
+   failure if any spills;
 3. K1 check: K1 against its plain PyTorch version on the card at ragged
-   shapes, for SE, Matérn-3/2 and Matérn-5/2 at d = 1 and SE at d = 3;
-   Phase 5 repeats the check at the main path's shapes (n = 100k,
-   r = 1 and 256);
+   shapes (n1 = 3000 and n2 = 5001: neither a multiple of 16 nor of the
+   x2 tile; r = 1, 8, 9, 16, 64, 255, 256, 257), for SE, Matérn-3/2 and
+   Matérn-5/2 at d = 1 and SE at d = 3. Phase 5 repeats the check at the
+   main path's shapes (n = 100k, r = 1 and 256) and holds K1 at n2 = 100k,
+   r = 256 on 2,048 rows of x1 spread over its range to the float64 plain
+   version (K3_RTOL·max|ref|: each output sums over all 100k rows);
 4. small-n posterior oracle: the iterative posterior (through K1) against a
    float64 dense Cholesky posterior, n = 4096, 64 test points;
 5. serving main path: ``GaussianProcess(...).posterior`` at N = 100,000
@@ -49,7 +55,7 @@ non-zero):
     then one fit step under ``torch.profiler``: device time by kernel and
     the device's busy share of the step's wall time;
 11. K3 check: K3 against its plain version at ragged shapes (n1 = 3000,
-    n2 = 5001, r = 1, 9, 256) for each leaf alone -- SE scalar and ARD at
+    n2 = 5001, r = 1, 8, 9, 16, 255, 256) for each leaf alone -- SE scalar and ARD at
     d = 3, PER, LIN with an ARD offset at d = 3, Matérn-3/2 and -5/2 at
     d = 1 and ARD at d = 3, RQ, CONST -- and the Mauna Loa composite,
     within 5e-5·max|ref| (the JAX gates ``expr_matvec_*``); the composite
@@ -77,7 +83,9 @@ non-zero):
 16. K3 at r = 1, 9 and 256 (the y-solve, the fit's CG, a posterior chunk)
     and K4 at r = 273 at n = 100k on the composite's training inputs:
     checked against their plain versions (K4 also against float64), then
-    timed in turns with them, each beside its bound;
+    timed in turns with them, each beside its bound; K3 at n2 = 100k,
+    r = 256 on 2,048 spread rows of x1 against the float64 plain version
+    (the chain-length check of phase 5);
 17. profile: one composite fit step under ``torch.profiler``;
 18. K5/K6 check: ``se_gram`` and ``matern_gram`` against their plain
     versions at n1 = 3000, n2 = 5001 (SE at d = 1, 3 and 8, ARD SE at d = 3
@@ -117,16 +125,18 @@ phase 19, the segmented and partitioned paths of phases 20 and 21), the
 largest absolute and relative differences from the plain version over the
 checks (relative: K1's, K3's, K5's and K6's max|diff| / max|ref|, K2's per
 scalar, K4's per parameter array), the kernel's and the plain version's
-times at the main path's shapes (K1 and K3 at r = 256; K3 also at r = 1
+times at the main path's shapes (K1 and K3 at r = 256; both also at r = 1
 and 9 in ``ms_by_width``, beside ``bound_ms_by_width``; K5 and K6 at the
 16,384² build, every shape of phase 22 in ``ms_by_shape`` and its
 neighbours), and the bound: the larger of the bytes the function must move
-over 3.35 TB/s and its operations over their peak (2·n1·n2·(r + d) float32
-operations at 67 TFLOP/s for a product, 3·n·m·d for a Gram; the
-special-function calls per pair -- one exponential for K1, K2, K5 and K6;
-for K3 and K4 the calls the expression needs (``_special_calls``) -- at
-132 SMs × 16 per clock × 1.98 GHz). The last line is ``{"ok": true,
-"device": {...}}``. Without a CUDA device it fails.
+over 3.35 TB/s and its operations over their peak -- a rank-r product of
+n1·n2 pairs (K1-K4) as 3·2·n1·n2·r tensor-core operations at the 495
+TFLOP/s of dense TF32 (the 3xTF32 split that keeps float32's digits), a
+Gram as 3·n·m·d float32 operations at 67 TFLOP/s; the special-function
+calls per pair -- one exponential for K1, K2, K5 and K6; for K3 and K4 the
+calls the expression needs (``_special_calls``) -- at 132 SMs × 16 per
+clock × 1.98 GHz. The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it fails.
 """
 from __future__ import annotations
 
@@ -135,6 +145,7 @@ import json
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -160,6 +171,7 @@ K2_RTOL_CANCEL = 1e-4
 # the CUDA programming guide's 16 per clock per SM at the 1.98 GHz boost)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # dense tensor-core TF32
 EXP_PER_S = 132 * 16 * 1.98e9
 
 
@@ -215,6 +227,41 @@ def phase_build() -> None:
     log(f"[build] K3 and K4 for {len(exprs)} expressions "
         f"({2 * len(exprs)} libraries, csrc/expr_matvec.cu and "
         f"csrc/expr_vjp.cu with generated code) in {seconds[-1]:.2f} s")
+    spills = _ptxas_lines(cuda_build.library_path("gram_matvec.cu"), "K1")
+    for name, kernel, d in _expr_cases():
+        spills += _ptxas_lines(cuda_expr.library("matvec", _core(kernel), d),
+                               f"K3 {name}")
+    if spills:
+        raise RuntimeError(f"K1/K3 instantiations spill registers: {spills}")
+
+
+def _ptxas_lines(library, tag: str) -> list:
+    """Print ``-Xptxas -v``'s registers, stack and spills of each kernel of
+    a K1 or K3 library (names demangled with cu++filt where it is found);
+    returns the names of those that spill."""
+    from gaussianprocessfundamentals_tpu_torch.ops import cuda_build
+
+    report = cuda_build.ptxas_report(library)
+    try:
+        filt = str(Path(cuda_build._nvcc()).parent / "cu++filt")
+        names = subprocess.run(
+            [filt, *(k["name"] for k in report)], capture_output=True,
+            text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = [k["name"] for k in report]
+    spilled = []
+    wide = any("(int)32>" in name or "ELi32E" in name for name in names)
+    tag += f" ({256 if wide else 128}-column tiles)"
+    for k, name in zip(report, names):
+        name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = name[:name.find(">(") + 1] if ">(" in name else name
+        spill = k.get("spill_stores", 0) + k.get("spill_loads", 0)
+        log(f"[ptxas] {tag} {name}: {k.get('registers')} registers, "
+            f"{k.get('stack')} bytes stack, {k.get('spill_stores')} bytes "
+            f"spill stores, {k.get('spill_loads')} bytes spill loads")
+        if spill:
+            spilled.append(f"{tag} {name}")
+    return spilled
 
 
 def phase_kernel_check() -> tuple[float, float]:
@@ -228,7 +275,7 @@ def phase_kernel_check() -> tuple[float, float]:
     for kind, d, ls, var, rtol in cases:
         x1 = torch.rand(n1, d, generator=g).cuda()
         x2 = torch.rand(n2, d, generator=g).cuda()
-        for r in (1, 9, 64, 257):
+        for r in (1, 8, 9, 16, 64, 255, 256, 257):
             V = torch.randn(n2, r, generator=g).cuda()
             worst = _worse(worst, _check_against_plain(x1, x2, V, ls, var,
                                                        kind, rtol))
@@ -241,11 +288,12 @@ def _worse(a, b):
 
 
 def _check_against_plain(x1, x2, V, ls, var, kind, rtol,
-                         f64=False) -> tuple[float, float]:
+                         f64=False, vs_f64=False) -> tuple[float, float]:
     """K1 against its plain version on the same inputs: max|diff| must be
     within ``rtol`` of max|ref| (the JAX package's on-chip gates: 5e-5 at
     d = 1, 5e-4 at SE d = 3). With ``f64``, also print both versions'
-    distance from the plain version run in float64. Returns max|diff| and
+    distance from the plain version run in float64; with ``vs_f64``, hold
+    the kernel to that float64 version instead. Returns max|diff| and
     max|diff| / max|ref|."""
     from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
         fused_gram_matvec_cross,
@@ -258,14 +306,18 @@ def _check_against_plain(x1, x2, V, ls, var, kind, rtol,
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    ok = bool(torch.isfinite(got).all()) and err <= rtol * scale
     tag = f"{kind} d={x1.shape[1]} n1={x1.shape[0]} n2={x2.shape[0]} r={V.shape[1]}"
     extra = ""
-    if f64:
+    if f64 or vs_f64:
         ref64 = plain_gram_matvec_cross(x1.double(), x2.double(), V.double(),
                                         ls, var, kind)
-        extra = (f"; vs float64: kernel {float((got.double() - ref64).abs().max()):.3e}, "
+        err64 = float((got.double() - ref64).abs().max())
+        extra = (f"; vs float64: kernel {err64:.3e}, "
                  f"plain {float((ref.double() - ref64).abs().max()):.3e}")
+        if vs_f64:
+            err, scale = err64, float(ref64.abs().max())
+            tag += " vs float64"
+    ok = bool(torch.isfinite(got).all()) and err <= rtol * scale
     log(f"[k1] {tag}: max|diff| {err:.3e} (limit {rtol:g} x max|ref| {scale:.3e})"
         f"{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -396,21 +448,37 @@ def phase_main() -> dict:
             lambda: plain_gram_matvec_cross(x, x, V, LENGTHSCALE, 1.0, "se"),
             reps,
         )
-        bound_ms, bound_by = _bound(N_MAIN, N_MAIN, 1, r, 4 * N_MAIN * (2 + r),
+        bound_ms, bound_by = _bound(N_MAIN, N_MAIN, r, 4 * N_MAIN * (2 + r),
                                     4 * N_MAIN * r)
+        times[r] += (bound_ms, bound_by)
         log(f"[time] K1 r={r} n={N_MAIN}: kernel {times[r][0]:.3f} ms, "
-            f"plain {times[r][1]:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) "
+            f"plain {times[r][1]:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}): "
+            f"{100 * bound_ms / times[r][0]:.1f}% of the bound "
             f"({2 * N_MAIN * N_MAIN * r / (times[r][0] * 1e-3) / 1e12:.2f} TFLOP/s "
             f"in the kernel's product)")
+    # chain length: every total runs over all 100k x2 rows, against float64
+    V = torch.randn(N_MAIN, 256, generator=g).cuda()
+    worst = _worse(worst, _check_against_plain(
+        _chain_rows(x), x, V, LENGTHSCALE, 1.0, "se", K3_RTOL, vs_f64=True))
     return {"counts": counts, "times": times, "worst": worst}
 
 
-def _bound(n1: int, n2: int, d: int, r: int, in_bytes: int, out_bytes: int):
+def _chain_rows(x):
+    """2,048 rows of x spread over its range (every 48th of the sorted
+    100k), so each row's pairs reach across the whole of x."""
+    return x[::48][:2048]
+
+
+def _bound(n1: int, n2: int, r: int, in_bytes: int, out_bytes: int,
+           n_special: int = 1):
     """(bound_ms, bound_by) of a kernel over n1·n2 pairs with a rank-r
-    product: the larger of its bytes over the memory rate and its
-    operations over their peak rate (module docstring)."""
+    product: the larger of its bytes over the memory rate, its
+    special-function calls over their rate, and the product's 3xTF32
+    tensor-core operations (3·2·n1·n2·r) over their peak (module
+    docstring)."""
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    t_ops = max(2.0 * n1 * n2 * (r + d) / F32_OPS_PER_S, n1 * n2 / EXP_PER_S)
+    t_ops = max(3 * 2.0 * n1 * n2 * r / TF32_OPS_PER_S,
+                n1 * n2 * n_special / EXP_PER_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -632,7 +700,7 @@ def phase_fit_time(x) -> dict:
         lambda: plain_lowrank_vjp_cross(x, x, U, W, LENGTHSCALE, 1.0, "se"),
         3,
     )
-    bound_ms, bound_by = _bound(N_MAIN, N_MAIN, 1, R_MAIN,
+    bound_ms, bound_by = _bound(N_MAIN, N_MAIN, R_MAIN,
                                 4 * 2 * N_MAIN * (1 + R_MAIN), 8)
     log(f"[time] K2 r={R_MAIN} n={N_MAIN}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}): "
@@ -648,13 +716,14 @@ def phase_fit_time(x) -> dict:
         lambda: plain_gram_matvec_cross(x, x, V, LENGTHSCALE, 1.0, "se"),
         10,
     )
-    k1_bound_ms, k1_bound_by = _bound(N_MAIN, N_MAIN, 1, R_CG,
+    k1_bound_ms, k1_bound_by = _bound(N_MAIN, N_MAIN, R_CG,
                                       4 * N_MAIN * (2 + R_CG), 4 * N_MAIN * R_CG)
     log(f"[time] K1 r={R_CG} n={N_MAIN}: kernel {k1_ms:.3f} ms, plain "
         f"{k1_plain_ms:.3f} ms, bound {k1_bound_ms:.3f} ms ({k1_bound_by}): "
         f"{100 * k1_bound_ms / k1_ms:.1f}% of the bound")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "worst": worst, "k1_worst": k1_worst}
+            "bound_by": bound_by, "worst": worst, "k1_worst": k1_worst,
+            "k1": (k1_ms, k1_plain_ms, k1_bound_ms, k1_bound_by)}
 
 
 def phase_profile(x, y) -> None:
@@ -864,7 +933,7 @@ def phase_k3_check() -> tuple:
         core = _core(kernel)
         x1 = torch.rand(n1, d, generator=g).cuda()
         x2 = torch.rand(n2, d, generator=g).cuda()
-        for r in (1, 9, 256):
+        for r in (1, 8, 9, 16, 255, 256):
             V = torch.randn(n2, r, generator=g).cuda()
             worst = _worse(worst, _k3_check(core, x1, x2, V, name))
     # accumulation depth: 65,536² pairs of the Mauna composite, float64
@@ -1168,19 +1237,6 @@ def _special_calls(kernel, template: str) -> int:
     return count(kernel)
 
 
-def _expr_bound(n: int, d: int, r: int, in_bytes: int, out_bytes: int,
-                n_special: int):
-    """(bound_ms, bound_by) of K3 or K4 over n² pairs: the larger of the
-    bytes over the memory rate, 2·n²·(r + d) float32 operations over their
-    peak, and the expression's special-function calls per pair over the
-    special-function rate."""
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    t_ops = max(2.0 * n * n * (r + d) / F32_OPS_PER_S,
-                n * n * n_special / EXP_PER_S)
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes > t_ops else "operations")
-
-
 def phase_expr_time(x) -> dict:
     """K3 at the fit's and the posterior's widths and K4 at the fit's rank,
     at n = 100k: each first checked against its plain version on the same
@@ -1209,13 +1265,17 @@ def phase_expr_time(x) -> dict:
         ms, plain_ms = _abba_ms(
             lambda: expr_gram_matvec_cross(core, x, x, V, pv),
             lambda: plain_expr_gram_matvec_cross(core, x, x, V), reps)
-        bound_ms, bound_by = _expr_bound(N_MAIN, 1, r, 4 * N_MAIN * (2 + r),
-                                         4 * N_MAIN * r, n_k3)
+        bound_ms, bound_by = _bound(N_MAIN, N_MAIN, r, 4 * N_MAIN * (2 + r),
+                                    4 * N_MAIN * r, n_k3)
         log(f"[time] K3 Mauna r={r} n={N_MAIN}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
             f"{n_k3} special-function calls per pair): "
             f"{100 * bound_ms / ms:.1f}% of the bound")
         out[f"k3_{r}"] = (ms, plain_ms, bound_ms, bound_by)
+    # chain length: every total runs over all 100k x2 rows, against float64
+    V = torch.randn(N_MAIN, 256, generator=g).cuda()
+    out["k3_worst"] = _worse(out["k3_worst"], _k3_check(
+        core, _chain_rows(x), x, V, "mauna", f64=True))
     # zero-mean cotangent, as the fit's
     U = torch.randn(N_MAIN, R_MAIN, generator=g).cuda()
     W = torch.randn(N_MAIN, R_MAIN, generator=g).cuda()
@@ -1229,9 +1289,9 @@ def phase_expr_time(x) -> dict:
     ms, plain_ms = _abba_ms(
         lambda: expr_lowrank_vjp_cross(core, x, x, U, W, pv),
         lambda: plain_expr_lowrank_vjp_cross(core, x, x, U, W), 1)
-    bound_ms, bound_by = _expr_bound(N_MAIN, 1, R_MAIN,
-                                     4 * 2 * N_MAIN * (1 + R_MAIN) + 4 * pv.numel(),
-                                     4 * pv.numel(), n_k4)
+    bound_ms, bound_by = _bound(N_MAIN, N_MAIN, R_MAIN,
+                                4 * 2 * N_MAIN * (1 + R_MAIN) + 4 * pv.numel(),
+                                4 * pv.numel(), n_k4)
     log(f"[time] K4 Mauna r={R_MAIN} n={N_MAIN}: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, {n_k4} "
         f"special-function calls per pair): {100 * bound_ms / ms:.1f}% of the "
@@ -1721,8 +1781,13 @@ def main() -> None:
              "dense_posterior": dense_counts,
              "segmented": seg["counts"], "partitioned": part["counts"]}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in _wrappers()}
-    k1_bound = _bound(N_MAIN, N_MAIN, 1, 256, 4 * N_MAIN * (2 + 256),
-                      4 * N_MAIN * 256)
+    k1_widths = {1: main_res["times"][1], R_CG: fit_time["k1"],
+                 256: main_res["times"][256]}
+    k1 = _kernel_entry("fused_gram_matvec_cross", "gram_matvec.cu",
+                       "pallas_gram.py:252", by_path["K1"], k1_worst,
+                       k1_widths[256])
+    k1["ms_by_width"] = {str(r): t[0] for r, t in k1_widths.items()}
+    k1["bound_ms_by_width"] = {str(r): t[2] for r, t in k1_widths.items()}
     k3 = _kernel_entry("expr_gram_matvec_cross", "expr_matvec.cu",
                        "pallas_expr.py:394", by_path["K3"], k3_worst,
                        expr_time["k3_256"])
@@ -1742,9 +1807,7 @@ def main() -> None:
         k56.append(entry)
     log(smi)
     log(json.dumps({"kernels": [
-        _kernel_entry("fused_gram_matvec_cross", "gram_matvec.cu",
-                      "pallas_gram.py:252", by_path["K1"], k1_worst,
-                      main_res["times"][256] + k1_bound),
+        k1,
         _kernel_entry("fused_lowrank_vjp_cross", "lowrank_vjp.cu",
                       "pallas_gram.py:398", by_path["K2"], k2_worst,
                       (fit_time["ms"], fit_time["plain_ms"],

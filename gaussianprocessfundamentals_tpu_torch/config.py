@@ -32,8 +32,10 @@ class GPConfig:
     # gate of ChangePoint and MeanChangePoint when none is given
     cp_gate: ChangePointGate = ChangePointGate.INDICATOR
     # float32 matmul precision the CUDA path requires: "highest" is full
-    # float32. TF32 keeps about three decimal digits, which breaks CG
-    # residuals and Cholesky-grade posteriors.
+    # float32. One TF32 pass keeps about three decimal digits, which breaks
+    # CG residuals and Cholesky-grade posteriors. (The Gram·V kernels K1 and
+    # K3 use the tensor cores inside, in 3xTF32, which keeps float32's
+    # digits; torch's own matmuls stay at this precision.)
     matmul_precision: str = "highest"
     # ×10 jitter escalations fit() tries when the dense NLL comes out
     # non-finite (a Cholesky that failed)

@@ -67,18 +67,38 @@ def expression_key(kernel, d: int) -> str:
 
 def generated_source(template: str, kernel, d: int) -> str:
     """The full CUDA source of one expression's K3 ("matvec") or K4
-    ("vjp"): the generated ``struct Expr``, then the template."""
+    ("vjp"): the generated ``struct Expr``, then the template with its
+    headers inlined."""
     name = _TEMPLATES[template]
     return (f"// generated for {kernel} at d = {d}\n"
             f"// {expression_key(kernel, d)}\n"
             + cuda_struct(build_program(kernel, d))
             + f'#line 1 "{name}"\n'
-            + (cuda_build.CSRC / name).read_text())
+            + cuda_build.expand((cuda_build.CSRC / name).read_text(), name))
+
+
+# K3 with 128-column tiles (csrc/gram_mma.cuh, "Registers")
+_NARROW_K3 = "#define EXPR_MAX_COLS 128\n"
+
+
+def library(template: str, kernel, d: int):
+    """The expression's K3 or K4 library, built unless it exists.
+
+    K3 is built with 256-column tiles first; where ptxas reports that they
+    spill registers for this expression (cheap ones, whose evaluation it
+    schedules far ahead), it is rebuilt with 128-column tiles, which
+    evaluate each pair twice at r > 128."""
+    text = generated_source(template, kernel, d)
+    path = cuda_build.build_generated(f"expr_{template}", text)
+    if template == "matvec" and any(
+            k.get("spill_stores") or k.get("spill_loads")
+            for k in cuda_build.ptxas_report(path)):
+        path = cuda_build.build_generated(f"expr_{template}", _NARROW_K3 + text)
+    return path
 
 
 def _build_job(template: str, kernel, d: int):
-    text = generated_source(template, kernel, d)
-    return lambda: cuda_build.build_generated(f"expr_{template}", text)
+    return lambda: library(template, kernel, d)
 
 
 def _bind(template: str, path) -> tuple:

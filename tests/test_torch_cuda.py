@@ -42,12 +42,13 @@ def cuda():
 @pytest.mark.parametrize("kind,d,rtol", [("se", 1, 5e-5), ("mat32", 1, 5e-5),
                                          ("mat52", 1, 5e-5), ("se", 3, 5e-4),
                                          ("se", 6, 5e-4)])
-@pytest.mark.parametrize("r", [1, 3, 9, 64, 257])
-def test_kernel_matches_plain_on_card(cuda, kind, d, rtol, r):
+@pytest.mark.parametrize("r", [1, 3, 8, 9, 16, 64, 255, 256, 257])
+@pytest.mark.parametrize("n1,n2", [(1000, 1501), (77, 2053)])
+def test_kernel_matches_plain_on_card(cuda, kind, d, rtol, r, n1, n2):
     g = torch.Generator().manual_seed(0)
-    x1 = torch.rand(1000, d, generator=g).to(cuda)
-    x2 = torch.rand(1501, d, generator=g).to(cuda)
-    V = torch.randn(1501, r, generator=g).to(cuda)
+    x1 = torch.rand(n1, d, generator=g).to(cuda)
+    x2 = torch.rand(n2, d, generator=g).to(cuda)
+    V = torch.randn(n2, r, generator=g).to(cuda)
     before = cuda_gram.fused_gram_matvec_cross.launches
     got = cuda_gram.fused_gram_matvec_cross(x1, x2, V, 0.3, 1.2, kind)
     torch.cuda.synchronize()
@@ -280,14 +281,15 @@ SHARP_PER = ["per-default", "per-sharp", "per-short"]
 
 
 @pytest.mark.parametrize("name", EXPRS)
-@pytest.mark.parametrize("r", [1, 9, 256])
-def test_k3_matches_plain_on_card(cuda, name, r):
+@pytest.mark.parametrize("r", [1, 8, 9, 16, 255, 256])
+@pytest.mark.parametrize("n1,n2", [(700, 1301), (77, 2053)])
+def test_k3_matches_plain_on_card(cuda, name, r, n1, n2):
     """Within 5e-5·max|ref| (the JAX gates ``expr_matvec_*``)."""
     kernel, d = _expr(name, cuda)
     g = torch.Generator().manual_seed(4)
-    x1 = torch.rand(700, d, generator=g).to(cuda)
-    x2 = torch.rand(1301, d, generator=g).to(cuda)
-    V = torch.randn(1301, r, generator=g).to(cuda)
+    x1 = torch.rand(n1, d, generator=g).to(cuda)
+    x2 = torch.rand(n2, d, generator=g).to(cuda)
+    V = torch.randn(n2, r, generator=g).to(cuda)
     before = cuda_expr.expr_gram_matvec_cross.launches
     got = cuda_expr.expr_gram_matvec_cross(kernel, x1, x2, V)
     torch.cuda.synchronize()

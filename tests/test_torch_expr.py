@@ -206,6 +206,22 @@ def test_cache_key_follows_child_order_not_canonical_str():
     assert "3.141592653589793f" in src and " 0.5 " not in src
 
 
+def test_built_sources_inline_the_tile_header_so_it_enters_their_hash():
+    """K1's and K3's sources include csrc/gram_mma.cuh; what is compiled and
+    hashed is the text with the header inlined, so editing the header
+    renames (and rebuilds) both libraries."""
+    from gaussianprocessfundamentals_tpu_torch.ops import cuda_build
+
+    k = gpt.SquaredExponentialKernel() + gpt.PeriodicKernel()
+    k.set_params(k.init_params([[0.0, 1.0]], 100))
+    header = (cuda_build.CSRC / "gram_mma.cuh").read_text()
+    for text in (cuda_build.expand(
+            (cuda_build.CSRC / "gram_matvec.cu").read_text(), "gram_matvec.cu"),
+            cuda_expr.generated_source("matvec", k, 1)):
+        assert '#include "gram_mma.cuh"' not in text
+        assert header in text and '#line 1 "gram_mma.cuh"' in text
+
+
 def _wn_pair(seed=11):
     """SE + WN~s on d = 2 inputs with 20 duplicated rows
     (``tests/test_pallas_expr.py:171``)."""
