@@ -16,8 +16,9 @@ pass); above 40k rows, where K is never formed, Gram·V in
 ``csrc/lowrank_vjp.cu`` for SE and Matérn leaves, and for any Sum/Product
 expression in kernels generated from its AST (``ops/expr_codegen.py`` into
 ``csrc/expr_matvec.cu`` and ``csrc/expr_vjp.cu``); in plain PyTorch on the
-CPU. Checkpoints are the JAX package's format, both ways
-(``save``/``load``).
+CPU, and on the GPU for the covariances those kernels do not cover
+(ChangePoint, Partition, d > 8). Checkpoints are the JAX package's format,
+both ways (``save``/``load``).
 
 Quick start::
 

@@ -143,6 +143,20 @@ def apply_P_inv(W_b, d_rng, noise, V):
     return out[:, 0] if vec else out
 
 
+def cotangent_factor(cols):
+    """The columns side by side as one [n, r'] factor of the low-rank
+    cotangent U·Wᵀ, with zero columns up to r' a multiple of 4: they add
+    exactly nothing to U·Wᵀ, and rows of such a width let K2/K4 copy U and
+    W 16 bytes at a time (a ragged r takes 4-byte copies, which are
+    slower: PERF.md §5). Made in the concatenation the NLL
+    needs anyway, so no further copy."""
+    r = sum(c.shape[1] for c in cols)
+    pad = -r % 4
+    if pad:
+        cols = list(cols) + [cols[0].new_zeros((cols[0].shape[0], pad))]
+    return torch.cat(cols, dim=1)
+
+
 def _cot_vjp(kernel, x, U, W, dense_gram_vjp):
     """Contract the low-rank cotangent U·Wᵀ with ∂K/∂θ: through the Gram's
     own autograd graph when K is materialised, else K2 on a card or the
@@ -224,15 +238,15 @@ def _core_impl(kernel, x, y, noise, u, w=None, max_iters: int = 100,
                 # P⁻¹ = I/σ² − G·Gᵀ with G = W_b·diag(√(sv²/(σ²(sv²+σ²))))
                 G = W_b * torch.sqrt(sv * sv / (noise * (sv * sv + noise)))[None, :]
                 rhat = zhat - zt  # (Kₙ⁻¹ − P⁻¹)Z
-                U = torch.cat([rhat / (4.0 * s), zt / (4.0 * s), -0.5 * G,
-                               -0.5 * alpha[:, None]], dim=1)
-                W = torch.cat([zt, rhat, G, alpha[:, None]], dim=1)
+                U = cotangent_factor([rhat / (4.0 * s), zt / (4.0 * s),
+                                      -0.5 * G, -0.5 * alpha[:, None]])
+                W = cotangent_factor([zt, rhat, G, alpha[:, None]])
                 trace_est = (n / noise - torch.sum(G * G)
                              + torch.mean(torch.sum(zt * rhat, dim=0)))
             else:
-                U = torch.cat([zhat / (4.0 * s), zt / (4.0 * s),
-                               -0.5 * alpha[:, None]], dim=1)
-                W = torch.cat([zt, zhat, alpha[:, None]], dim=1)
+                U = cotangent_factor([zhat / (4.0 * s), zt / (4.0 * s),
+                                      -0.5 * alpha[:, None]])
+                W = cotangent_factor([zt, zhat, alpha[:, None]])
                 trace_est = torch.mean(torch.sum(zt * zhat, dim=0))
             grad_noise = 0.5 * (trace_est - torch.dot(alpha, alpha))
 

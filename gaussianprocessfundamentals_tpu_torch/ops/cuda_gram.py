@@ -10,10 +10,16 @@ what bounds it and how it is laid out.
 Routing is by the device of the tensors, never by a setting:
 
 * CPU tensors take the plain row-panel version (:mod:`.gram_matvec`);
-* CUDA tensors launch the kernel for the leaves it covers (SE at any d,
+* CUDA tensors launch the kernel for the leaves it covers (SE at d <= 8,
   Matérn at d = 1, scalar lengthscale or ARD SE by scaling x); the router
-  hands everything else to the composite-expression kernel K3
-  (:mod:`.cuda_expr`), as ``pallas_gram.py:546-553, 603-609`` do.
+  hands the expressions the generated code covers to the composite-
+  expression kernel K3 (:mod:`.cuda_expr`), as ``pallas_gram.py:546-553,
+  603-609`` do, and every other covariance (ChangePoint, Partition, d > 8,
+  WhiteNoise below the root Sum) to the plain row-panel version, which is
+  the JAX package's own default for every covariance
+  (``ops/gram_matvec.py:36-74`` there; its fused tiles only on request).
+  A covariance with malformed parameters is refused by name.
+  :func:`gram_route` decides.
 
 Forward-only, as the TPU kernel was: the iterative path never
 differentiates through a CG matvec, so the wrapper refuses inputs that
@@ -34,6 +40,11 @@ from gaussianprocessfundamentals_tpu_torch.kernels.leaves import (
 )
 from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
     expr_matvec_cross_for,
+)
+from gaussianprocessfundamentals_tpu_torch.ops.expr import (
+    malformed,
+    split_white_noise,
+    uncovered,
 )
 from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
     streamed_gram_matvec_cross,
@@ -187,22 +198,52 @@ def _k1_kind(kernel, d: int):
     return None
 
 
+def _route(leaf_covers: bool, kernel, d: int, leaf: str, expr: str) -> str:
+    """``leaf`` where the leaf kernel covers the covariance, ``expr`` where
+    the generated expression code covers it once WhiteNoise is stripped
+    from the root Sum (a bare WhiteNoise root included), else "plain".
+    Raises NotImplementedError, naming the fault, for malformed parameters
+    (:func:`..ops.expr.malformed`), which no route computes."""
+    if leaf_covers:
+        return leaf
+    core, _ = split_white_noise(kernel)
+    if core is None:
+        return expr
+    why = malformed(core, d)
+    if why is not None:
+        raise NotImplementedError(
+            f"{kernel.canonical_str()} at d={d}: no CUDA route takes it: {why}")
+    return expr if uncovered(core, d) is None else "plain"
+
+
+def gram_route(kernel, d: int) -> str:
+    """Which version computes K(x1, x2)·V on a card: "K1", "K3" or "plain"
+    (the row-panel version, as on the CPU)."""
+    return _route(_k1_kind(kernel, d) is not None and d <= _MAX_D, kernel, d,
+                  "K1", "K3")
+
+
 def fused_matvec_cross_for(kernel, x1, x2):
     """A ``V -> K(x1, x2) @ V`` closure for the device of x1: the plain
-    row-panel version on the CPU; on a card K1 for the leaves it covers and
-    K3 (:func:`.cuda_expr.expr_matvec_cross_for`) for any other expression,
-    which raises when neither covers the covariance.
+    row-panel version on the CPU; on a card the version
+    :func:`gram_route` picks: K1 for the leaves it covers, K3
+    (:func:`.cuda_expr.expr_matvec_cross_for`) for the expressions its
+    generated code covers, the plain version for every other covariance.
 
     K1's hyperparameters are read to the host once here, not per call.
     ARD SE is covered by scaling x by 1/ℓ first, as ``gram`` does.
     """
     if x1.device.type == "cpu":
-        return lambda V: streamed_gram_matvec_cross(kernel, x1, x2, V)
-    if x1.device.type != "cuda":
+        route = "plain"
+    elif x1.device.type == "cuda":
+        route = gram_route(kernel, x1.shape[-1])
+    else:
         raise NotImplementedError(f"no Gram·V route for device {x1.device}")
-    kind = _k1_kind(kernel, x1.shape[-1])
-    if kind is None:
+    if route == "plain":
+        return lambda V: streamed_gram_matvec_cross(kernel, x1, x2, V)
+    if route == "K3":
         return expr_matvec_cross_for(kernel, x1, x2)
+    kind = _k1_kind(kernel, x1.shape[-1])
     ls = kernel.lengthscale.detach()
     if ls.ndim > 0:
         x1, x2, ls_f = x1 / ls, x2 / ls, 1.0

@@ -5,7 +5,8 @@ Counterpart of ``gaussianprocessfundamentals_tpu/ops/pallas_gram.py``:
 ``fused_lowrank_vjp_cross`` (``:398``), ``fused_lowrank_vjp`` (``:469``),
 ``fused_lowrank_vjp_for`` (``:510``) and ``fused_lowrank_vjp_cross_for``
 (``:560``). The TPU kernel becomes the hand-written CUDA kernel in
-``csrc/lowrank_vjp.cu`` (sm_90a, bound with ctypes); its source note says
+``csrc/lowrank_vjp.cu`` (sm_90a, bound with ctypes) on the tile loop of
+``csrc/lowrank_mma.cuh``, which it shares with K4; the header's note says
 what bounds it and how it is laid out.
 
 Routing is by the device of the tensors, as for K1 (:mod:`.cuda_gram`):
@@ -13,10 +14,15 @@ Routing is by the device of the tensors, as for K1 (:mod:`.cuda_gram`):
 * CPU tensors take the plain streamed autograd version
   (:func:`..ops.gram_matvec.lowrank_gram_vjp_cross`);
 * CUDA tensors launch the kernel for the leaves it covers (scalar-
-  lengthscale SE at any d, Matérn at d = 1); the router hands everything
-  else -- ARD lengthscales, Matérn at d > 1, the other leaves and
-  composites -- to the composite-expression kernel K4 (:mod:`.cuda_expr`),
-  as ``pallas_gram.py:504-506, 516-522`` do.
+  lengthscale SE at any d, Matérn at d = 1, as ``pallas_gram.py:484-507``
+  does); the router hands the expressions the generated code covers --
+  ARD lengthscales, Matérn at d > 1, the other leaves and composites --
+  to the composite-expression kernel K4 (:mod:`.cuda_expr`), as
+  ``pallas_gram.py:516-522`` does, and every other covariance
+  (ChangePoint, Partition, other than SE at d > 8, WhiteNoise below the
+  root Sum) to the plain streamed version, as the JAX package does
+  (``models/iterative.py:54-61`` there). A covariance with malformed
+  parameters is refused by name. :func:`vjp_route` decides.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
     _MAX_D,
     _pad_cols,
     _padded_width,
+    _route,
 )
 from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
     expr_lowrank_vjp_cross_for,
@@ -91,7 +98,8 @@ def fused_lowrank_vjp_cross(x1, x2, U, W, lengthscale, variance=1.0,
     x1: [n1, d], x2: [n2, d], U: [n1, r], W: [n2, r], all float32; returns
     two float32 scalars. ``g_variance`` is Σ cot·K/var, valid whether or
     not the kernel carries a variance (callers of unscaled kernels drop
-    it). ``kind`` ∈ {"se", "mat32", "mat52"}; Matérn needs d = 1.
+    it). ``kind`` ∈ {"se", "mat32", "mat52"}; SE takes any d, Matérn
+    needs d = 1.
     ``lengthscale`` and ``variance`` are scalars; pass Python floats on the
     hot path (a CUDA tensor costs a device-to-host read per call).
 
@@ -134,10 +142,6 @@ def fused_lowrank_vjp_cross(x1, x2, U, W, lengthscale, variance=1.0,
         )
     if kind != "se" and d != 1:
         raise NotImplementedError(f"Matérn at d={d} > 1: {_K4_ROUTE}")
-    if d > _MAX_D:
-        raise NotImplementedError(
-            f"the CUDA low-rank VJP kernel covers d <= {_MAX_D}, got d={d}"
-        )
     ls = float(lengthscale)
     var = float(variance)
     zero = torch.zeros((), dtype=torch.float32, device=x1.device)
@@ -149,11 +153,11 @@ def fused_lowrank_vjp_cross(x1, x2, U, W, lengthscale, variance=1.0,
         a = (math.sqrt(3.0) if kind == "mat32" else math.sqrt(5.0)) / ls
         b = 1.0 / ls
 
-    width = _padded_width(d)
+    # above 8 dimensions the kernel takes x at its own width (run time)
+    width = _padded_width(d) if d <= _MAX_D else d
     x1c = _pad_cols(x1, width)
     x2c = _pad_cols(x2, width)
-    Uc = U.contiguous()
-    Wc = W.contiguous()
+    Uc, Wc = U.contiguous(), W.contiguous()
     fn, tile = _lib()
     blocks = -(-n1 // tile) * -(-n2 // tile)
     partial = torch.empty((blocks, 2), dtype=torch.float32, device=x1.device)
@@ -181,8 +185,8 @@ def fused_lowrank_vjp(x, U, W, lengthscale, variance=1.0, kind: str = "se"):
 
 def _k2_kind(kernel, d: int):
     """K2's ``kind`` for a leaf it covers, else None (pallas_gram.py:484):
-    SE and Matérn-3/2 / -5/2 with a scalar lengthscale, Matérn at d = 1
-    only. ARD lengthscales are K4's, in the JAX package too."""
+    SE at any d and Matérn-3/2 / -5/2 at d = 1, with a scalar lengthscale.
+    ARD lengthscales are K4's, in the JAX package too."""
     ls = getattr(kernel, "lengthscale", None)
     if ls is None or ls.ndim != 0:
         return None
@@ -197,23 +201,34 @@ def _k2_kind(kernel, d: int):
     return None
 
 
+def vjp_route(kernel, d: int) -> str:
+    """Which version computes the gradient of Σ(UWᵀ)∘K(x1, x2) on a card:
+    "K2", "K4" or "plain" (the streamed autograd version, as on the CPU)."""
+    return _route(_k2_kind(kernel, d) is not None, kernel, d, "K2", "K4")
+
+
 def fused_lowrank_vjp_cross_for(kernel, x1, x2):
     """A ``(U, W) -> grads`` closure for the device of x1, giving the
     gradient of Σ(UWᵀ)∘K(x1, x2) with respect to the kernel's
     hyperparameters as a tree shaped like its params: the plain streamed
-    autograd version on the CPU; on a card K2 for the leaves it covers and
-    K4 (:func:`.cuda_expr.expr_lowrank_vjp_cross_for`) for any other
-    expression, which raises when neither covers the covariance.
+    autograd version on the CPU; on a card the version :func:`vjp_route`
+    picks: K2 for the leaves it covers, K4
+    (:func:`.cuda_expr.expr_lowrank_vjp_cross_for`) for the expressions its
+    generated code covers, the plain version for every other covariance.
 
     K2's hyperparameters are read to the host once here, not per call.
     """
     if x1.device.type == "cpu":
-        return lambda U, W: lowrank_gram_vjp_cross(kernel, x1, x2, U, W)
-    if x1.device.type != "cuda":
+        route = "plain"
+    elif x1.device.type == "cuda":
+        route = vjp_route(kernel, x1.shape[-1])
+    else:
         raise NotImplementedError(f"no low-rank VJP route for device {x1.device}")
-    kind = _k2_kind(kernel, x1.shape[-1])
-    if kind is None:
+    if route == "plain":
+        return lambda U, W: lowrank_gram_vjp_cross(kernel, x1, x2, U, W)
+    if route == "K4":
         return expr_lowrank_vjp_cross_for(kernel, x1, x2)
+    kind = _k2_kind(kernel, x1.shape[-1])
     dtype = kernel.lengthscale.dtype
     ls = float(kernel.lengthscale.detach())
     var = float(kernel.variance.detach()) if kernel.scaled else 1.0

@@ -98,29 +98,25 @@ def layout(kernel) -> List[Tuple[str, dict, bool]]:
     return out
 
 
-def unsupported(kernel, d: int) -> Optional[str]:
-    """What keeps the generated kernels from covering ``kernel`` at input
-    dimension ``d`` (None when they cover it). WhiteNoise must have been
-    stripped from the root first (:func:`split_white_noise`)."""
-    if d > MAX_D:
-        return f"d={d} > {MAX_D}: the tile code unrolls over the dimensions"
+def _sum_product_leaves(kernel) -> Iterator:
+    """The nodes below the Sum and Product nodes of an expression: leaves,
+    and the first operator of any other kind on each branch."""
+    if type(kernel) in (Sum, Product):
+        for c in kernel.terms:
+            yield from _sum_product_leaves(c)
+    else:
+        yield kernel
 
-    def walk(k) -> Optional[str]:
-        if type(k) in (Sum, Product):
-            for c in k.terms:
-                why = walk(c)
-                if why:
-                    return why
-            return None
-        if k.terms:
-            return (f"{type(k).__name__} is an operator the tile code does "
-                    f"not evaluate (covered: {COVERED}; the JAX package "
-                    "streams it through XLA)")
-        if type(k) not in LEAF_KINDS:
-            where = (" below the root Sum" if type(k) is lv.WhiteNoiseKernel
-                     else "")
-            return (f"{type(k).__name__}{where} has no tile evaluator "
-                    f"(covered: {COVERED}; WhiteNoise only at the root Sum)")
+
+def malformed(kernel, d: int) -> Optional[str]:
+    """What is wrong with the parameters of the covered leaves below the
+    Sum and Product nodes of ``kernel`` at input dimension ``d`` (None when
+    nothing is): a parameter not set, of a shape that is neither a scalar
+    nor one per dimension, or per-dimension where the leaf takes a scalar.
+    Such a kernel is not a valid covariance on any route."""
+    for k in _sum_product_leaves(kernel):
+        if k.terms or type(k) not in LEAF_KINDS:
+            continue
         kind = LEAF_KINDS[type(k)]
         for name in PARAM_NAMES[kind] + (("variance",) if k.scaled else ()):
             v = getattr(k, name)
@@ -130,15 +126,43 @@ def unsupported(kernel, d: int) -> Optional[str]:
                 return f"{type(k).__name__}.{name} has shape {tuple(v.shape)}"
             if v.ndim == 1 and v.numel() > 1 and (kind, name) not in ARD_OK:
                 return f"{type(k).__name__}.{name} cannot be per-dimension"
-        return None
+    return None
 
-    why = walk(kernel)
-    if why:
-        return why
+
+def uncovered(kernel, d: int) -> Optional[str]:
+    """What the generated kernels' tile code does not cover in ``kernel``
+    at input dimension ``d``, parameters aside (None when it covers the
+    expression): d > MAX_D, an operator other than Sum and Product, a leaf
+    with no tile evaluator (WhiteNoise below the root Sum among them), or
+    more than MAX_PARAMS packed parameters. WhiteNoise must have been
+    stripped from the root first (:func:`split_white_noise`)."""
+    if d > MAX_D:
+        return f"d={d} > {MAX_D}: the tile code unrolls over the dimensions"
+    for k in _sum_product_leaves(kernel):
+        if k.terms:
+            return (f"{type(k).__name__} is an operator the tile code does "
+                    f"not evaluate (covered: {COVERED}; the JAX package "
+                    "streams it through XLA)")
+        if type(k) not in LEAF_KINDS:
+            where = (" below the root Sum" if type(k) is lv.WhiteNoiseKernel
+                     else "")
+            return (f"{type(k).__name__}{where} has no tile evaluator "
+                    f"(covered: {COVERED}; WhiteNoise only at the root Sum)")
+    if malformed(kernel, d) is not None:
+        return None  # no packed layout to count
     p = sum(sz for _, slots, _ in layout(kernel) for _, sz in slots.values())
     if p > MAX_PARAMS:
         return f"{p} packed parameters > {MAX_PARAMS}"
     return None
+
+
+def unsupported(kernel, d: int) -> Optional[str]:
+    """What keeps the generated kernels from covering ``kernel`` at input
+    dimension ``d`` (None when they cover it): a gap in their coverage
+    (:func:`uncovered`) or malformed parameters (:func:`malformed`).
+    WhiteNoise must have been stripped from the root first
+    (:func:`split_white_noise`)."""
+    return uncovered(kernel, d) or malformed(kernel, d)
 
 
 def supported_expr(kernel, d: int) -> bool:

@@ -25,9 +25,21 @@ from gaussianprocessfundamentals_tpu_torch.ops import (
     cuda_lrvjp,
     expr,
 )
+from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
+    lowrank_gram_vjp_cross,
+    streamed_gram_matvec_cross,
+)
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
+
+
+def _kernel_launches():
+    """K1-K4's launch counts."""
+    return (cuda_gram.fused_gram_matvec_cross.launches,
+            cuda_lrvjp.fused_lowrank_vjp_cross.launches,
+            cuda_expr.expr_gram_matvec_cross.launches,
+            cuda_expr.expr_lowrank_vjp_cross.launches)
 
 
 @pytest.fixture
@@ -68,11 +80,18 @@ def test_kernel_refuses_what_it_does_not_cover(cuda):
                                           0.3, 1.0, "se")
     with pytest.raises(RuntimeError, match="forward-only"):
         cuda_gram.fused_gram_matvec_cross(x, x, V.requires_grad_(), 0.3, 1.0, "se")
-    # beyond K1 and K3 both: the router names what is missing
+    # beyond K1 and K3 both: the router takes the plain row-panel version,
+    # with no kernel launch
     k = gpt.Matern32Kernel(dim=9)
     k.set_params({"lengthscale": torch.tensor(0.3)})
-    with pytest.raises(NotImplementedError, match="d=9 > 8"):
-        cuda_gram.fused_matvec_for(k.to(cuda), torch.rand(10, 9, device=cuda))
+    k = k.to(cuda)
+    x9 = torch.rand(300, 9, device=cuda)
+    V9 = torch.randn(300, 4, device=cuda)
+    before = _kernel_launches()
+    got = cuda_gram.fused_matvec_for(k, x9)(V9)
+    assert _kernel_launches() == before
+    ref = streamed_gram_matvec_cross(k, x9, x9, V9)
+    assert torch.equal(got, ref)
 
 
 def test_ard_se_routes_through_the_kernel(cuda):
@@ -169,7 +188,7 @@ def test_k2_refuses_what_it_does_not_cover(cuda):
     with pytest.raises(RuntimeError, match="analytically"):
         cuda_lrvjp.fused_lowrank_vjp_cross(x, x, U.requires_grad_(), U, 0.3,
                                            1.0, "se")
-    # ARD and Matérn at d > 1 go to K4 now; beyond K4 the router names why
+    # ARD and Matérn at d > 1 go to K4 now
     ard = gpt.SquaredExponentialKernel(dim=2)
     ard.set_params({"lengthscale": torch.tensor([0.2, 0.4])})
     m52 = gpt.Matern52Kernel(dim=2)
@@ -180,11 +199,38 @@ def test_k2_refuses_what_it_does_not_cover(cuda):
         g = cuda_lrvjp.fused_lowrank_vjp_for(k.to(cuda), x)(U, U)
         assert torch.isfinite(g["lengthscale"]).all()
     assert cuda_expr.expr_lowrank_vjp_cross.launches == before + 2
+    # malformed parameters: the router names the fault
     per = gpt.PeriodicKernel(dim=2)
     per.set_params({"lengthscale": torch.tensor([0.2, 0.3]),
                     "period": torch.tensor(0.4)})
     with pytest.raises(NotImplementedError, match="cannot be per-dimension"):
         cuda_lrvjp.fused_lowrank_vjp_for(per.to(cuda), x)
+    # SE at d = 9 is K2's, as in the JAX package
+    se9 = gpt.SquaredExponentialKernel(dim=9, scaled=True)
+    se9.set_params({"lengthscale": torch.tensor(0.8),
+                    "variance": torch.tensor(1.3)})
+    x9 = torch.rand(300, 9, device=cuda)
+    U9 = torch.randn(300, 5, device=cuda)
+    before = cuda_lrvjp.fused_lowrank_vjp_cross.launches
+    g = cuda_lrvjp.fused_lowrank_vjp_for(se9.to(cuda), x9)(U9, U9)
+    assert cuda_lrvjp.fused_lowrank_vjp_cross.launches == before + 1
+    ref = lowrank_gram_vjp_cross(copy.deepcopy(se9).double(), x9.double(),
+                                 x9.double(), U9.double(), U9.double())
+    for name in ("lengthscale", "variance"):
+        assert abs(float(g[name]) - float(ref[name])) <= 1e-4 * abs(
+            float(ref[name])), name
+    # beyond K2 and K4 both (Matérn-3/2 at d = 9): the router takes the
+    # plain streamed version, with no kernel launch
+    wide = gpt.Matern32Kernel(dim=9, scaled=True)
+    wide.set_params({"lengthscale": torch.tensor(0.8),
+                     "variance": torch.tensor(1.3)})
+    wide = wide.to(cuda)
+    before = _kernel_launches()
+    got = cuda_lrvjp.fused_lowrank_vjp_for(wide, x9)(U9, U9)
+    assert _kernel_launches() == before
+    ref = lowrank_gram_vjp_cross(wide, x9, x9, U9, U9)
+    for name in ("lengthscale", "variance"):
+        assert torch.equal(got[name], ref[name]), name
 
 
 def test_streamed_fit_step_runs_k2_once(cuda):
@@ -341,6 +387,80 @@ def test_k4_matches_plain_on_card(cuda, name, r):
         for off, sz in slots.values():
             a, b = got[off:off + sz].double(), ref[off:off + sz]
             assert float((a - b).abs().max()) <= 3e-3 * float(b.abs().max()), (a, b)
+
+
+@pytest.mark.parametrize("name", ["se", "mat32", "mat52", "se-d3", "se-d20",
+                                  "se-d40", "mauna", "per", "se-ard-d3",
+                                  "per-short"])
+@pytest.mark.parametrize("r", [1, 7, 17, 272, 273])
+@pytest.mark.parametrize("n1,n2", [(700, 1301), (77, 2053)])
+def test_k2_k4_match_f64_plain_on_cancelling_cotangent(cuda, name, r, n1, n2):
+    """The 3xTF32 cotangent tile of K2 and K4 (csrc/lowrank_mma.cuh) on a
+    zero-mean cotangent, whose sums cancel, against the plain version run
+    in float64: K2 per scalar within 1e-4, K4 per parameter array within
+    2e-4 of max|ref| (chip_smoke.py's K2_RTOL_CANCEL and K4_RTOL_F64), at
+    ragged r (r = 1 and 7 below one k-step, 17 and 273 ending in a part
+    one; r = 272 takes 16-byte copies, the others 4-byte ones), at SE's
+    run-time widths (d = 20 and 40: a part chunk of 32 dimensions) and at
+    n1, n2 that are not multiples of the 128-row tile."""
+    g = torch.Generator().manual_seed(6)
+    # (kind, d, lengthscale): wider inputs, longer lengthscales
+    leaf = {"se": ("se", 1, 0.2), "mat32": ("mat32", 1, 0.2),
+            "mat52": ("mat52", 1, 0.2), "se-d3": ("se", 3, 0.2),
+            "se-d20": ("se", 20, 0.9), "se-d40": ("se", 40, 1.3)}.get(name)
+    d = leaf[1] if leaf else _expr(name, cuda)[1]
+    x1 = torch.rand(n1, d, generator=g).to(cuda)
+    x2 = torch.rand(n2, d, generator=g).to(cuda)
+    U = torch.randn(n1, r, generator=g).to(cuda)
+    W = torch.randn(n2, r, generator=g).to(cuda)
+    f64 = [t.double() for t in (x1, x2, U, W)]
+    if leaf:
+        before = cuda_lrvjp.fused_lowrank_vjp_cross.launches
+        got = cuda_lrvjp.fused_lowrank_vjp_cross(x1, x2, U, W, leaf[2], 1.3,
+                                                 leaf[0])
+        torch.cuda.synchronize()
+        assert cuda_lrvjp.fused_lowrank_vjp_cross.launches == before + 1
+        ref = cuda_lrvjp.plain_lowrank_vjp_cross(*f64, leaf[2], 1.3, leaf[0])
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a)
+            assert abs(float(a) - float(b)) <= 1e-4 * abs(float(b)), (float(a), float(b))
+        return
+    kernel, _ = _expr(name, cuda)
+    before = cuda_expr.expr_lowrank_vjp_cross.launches
+    got = cuda_expr.expr_lowrank_vjp_cross(kernel, x1, x2, U, W)
+    torch.cuda.synchronize()
+    assert cuda_expr.expr_lowrank_vjp_cross.launches == before + 1
+    ref = expr.plain_expr_lowrank_vjp_cross(copy.deepcopy(kernel).double(), *f64)
+    assert torch.isfinite(got).all()
+    for _, slots, _ in expr.layout(kernel):
+        for off, sz in slots.values():
+            a, b = got[off:off + sz].double(), ref[off:off + sz]
+            assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max()), (a, b)
+
+
+def test_k2_k4_take_unaligned_operands_as_they_are(cuda):
+    """U and W with r % 4 == 0 that are not 16-byte aligned (views one
+    float into their storage) take the 4-byte copies of a ragged r and give
+    bit for bit the sums of aligned copies of the same values."""
+    g = torch.Generator().manual_seed(7)
+    n1, n2, r = 300, 517, 16
+    x1 = torch.rand(n1, 1, generator=g).to(cuda)
+    x2 = torch.rand(n2, 1, generator=g).to(cuda)
+    U = torch.randn(n1, r, generator=g).to(cuda)
+    W = torch.randn(n2, r, generator=g).to(cuda)
+
+    def shifted(M):
+        out = torch.empty(M.numel() + 1, device=cuda)[1:].view(M.shape)
+        return out.copy_(M)
+
+    Us, Ws = shifted(U), shifted(W)
+    assert Us.data_ptr() % 16 != 0 and Ws.data_ptr() % 16 != 0
+    a = cuda_lrvjp.fused_lowrank_vjp_cross(x1, x2, U, W, 0.2, 1.3, "se")
+    b = cuda_lrvjp.fused_lowrank_vjp_cross(x1, x2, Us, Ws, 0.2, 1.3, "se")
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    kernel, _ = _expr("mauna", cuda)
+    assert torch.equal(cuda_expr.expr_lowrank_vjp_cross(kernel, x1, x2, U, W),
+                       cuda_expr.expr_lowrank_vjp_cross(kernel, x1, x2, Us, Ws))
 
 
 def test_k3_k4_refuse_what_they_do_not_cover(cuda):
@@ -506,20 +626,28 @@ def test_dense_router_refuses_hyperparameters_that_require_grad(cuda):
 
 def test_changepoint_and_partition_are_refused_off_the_dense_route(cuda):
     """The K1/K3 and K2/K4 routers have no tile code for ChangePoint and
-    Partition: they raise and say why, rather than misroute them."""
+    Partition: they take the plain streamed versions, as the JAX package
+    does, and launch no kernel; the dense route serves them through
+    kernel.gram."""
     cp = gpt.ChangePoint(children=(gpt.SquaredExponentialKernel(),
                                    gpt.SquaredExponentialKernel()))
     part = gpt.Partition(children=(gpt.SquaredExponentialKernel(),
                                    gpt.SquaredExponentialKernel()),
                          model=gpt.BoxPartitioning(edges=(0.5,)))
     x = torch.rand(50, 1, device=cuda)
-    for kernel, name in ((cp, "ChangePoint"), (part, "Partition")):
+    V = torch.randn(50, 3, device=cuda)
+    for kernel in (cp, part):
         kernel.set_params(kernel.init_params([[0.0, 1.0]], 50)).to(cuda)
-        with pytest.raises(NotImplementedError, match=f"{name} is an operator"):
-            cuda_gram.fused_matvec_for(kernel, x)
-        with pytest.raises(NotImplementedError, match=f"{name} is an operator"):
-            cuda_lrvjp.fused_lowrank_vjp_for(kernel, x)
-        # the dense route serves them through kernel.gram
+        assert cuda_gram.gram_route(kernel, 1) == "plain"
+        assert cuda_lrvjp.vjp_route(kernel, 1) == "plain"
+        before = _kernel_launches()
+        got = cuda_gram.fused_matvec_for(kernel, x)(V)
+        assert torch.equal(got, streamed_gram_matvec_cross(kernel, x, x, V))
+        g = cuda_lrvjp.fused_lowrank_vjp_for(kernel, x)(V, V)
+        ref = lowrank_gram_vjp_cross(kernel, x, x, V, V)
+        for a, b in zip(tree_leaves(g), tree_leaves(ref)):
+            assert torch.equal(a, b)
+        assert _kernel_launches() == before
         gp = gpt.GaussianProcess(kernel, noise=1e-2).set_data(
             x, torch.sin(6 * x[:, 0]))
         assert torch.isfinite(gp.posterior(x[:5]).mean).all()

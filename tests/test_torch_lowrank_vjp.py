@@ -38,6 +38,7 @@ torch.set_num_threads(1)
 
 CASES = [("SquaredExponentialKernel", "se", 1),
          ("SquaredExponentialKernel", "se", 3),
+         ("SquaredExponentialKernel", "se", 20),
          ("Matern32Kernel", "mat32", 1),
          ("Matern52Kernel", "mat52", 1)]
 LS, VAR = 0.3, 1.4
@@ -138,6 +139,29 @@ def test_square_forms_and_plain_version_agree():
         dense = torch.autograd.grad(total, [p["lengthscale"], p["variance"]])
     torch.testing.assert_close(g["lengthscale"], dense[0], rtol=1e-10, atol=0)
     torch.testing.assert_close(g["variance"], dense[1], rtol=1e-10, atol=0)
+
+
+def test_cotangent_factor_adds_zero_columns_to_a_multiple_of_4():
+    """The NLL's factors: r = 273 becomes 276 by zero columns, which leave
+    U·Wᵀ and so the gradient exactly as they were."""
+    from gaussianprocessfundamentals_tpu_torch.models.iterative import (
+        cotangent_factor,
+    )
+
+    x1, x2, U, W = (torch.from_numpy(a) for a in
+                    _inputs(1, 273, np.float64, seed=4))
+    Up = cotangent_factor([U[:, :200], U[:, 200:]])
+    Wp = cotangent_factor([W[:, :1], W[:, 1:]])
+    assert Up.shape == (600, 276) and Wp.shape == (1100, 276)
+    assert torch.equal(Up[:, :273], U) and not Up[:, 273:].any()
+    assert cotangent_factor([U[:, :272]]).shape[1] == 272
+    k = gpt.SquaredExponentialKernel(scaled=True)
+    k.set_params({"lengthscale": torch.tensor(LS, dtype=torch.float64),
+                  "variance": torch.tensor(VAR, dtype=torch.float64)})
+    got = lowrank_gram_vjp_cross(k, x1, x2, Up, Wp)
+    ref = lowrank_gram_vjp_cross(k, x1, x2, U, W)
+    for name in ("lengthscale", "variance"):
+        torch.testing.assert_close(got[name], ref[name], rtol=1e-12, atol=0)
 
 
 def test_k2_coverage():

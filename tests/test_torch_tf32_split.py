@@ -1,5 +1,6 @@
 """The 3xTF32 arithmetic of the Gram·V kernels K1 and K3
-(``csrc/gram_mma.cuh``), emulated on the CPU.
+(``csrc/gram_mma.cuh``) and of the low-rank-VJP kernels K2 and K4
+(``csrc/lowrank_mma.cuh``), emulated on the CPU.
 
 The kernels split each operand a into TF32 halves, ``hi = cvt.rna.tf32.f32
 (a)`` and ``lo = cvt.rna.tf32.f32(a - hi)``, and per tile of x2 rows add
@@ -9,12 +10,22 @@ int32 view (round to nearest, ties away from zero, 10 mantissa bits kept),
 and the same tiled three-term product of an SE Gram row panel and V is
 held against float64 within ``K3_RTOL``·max|ref|, the limit the card checks
 K1 and K3 with (``chip_smoke.py``); one TF32 pass misses it.
+
+K2 and K4 make the cotangent tile U Wᵀ the same way, with U's and W's
+r columns as the reduction axis: per 8-wide k-step ``u_lo·w_hi``, then
+``u_hi·w_lo``, then ``u_hi·w_hi`` into a float32 partial that starts at
+zero and is added to the float32 accumulator. That tile, emulated at
+n = 1,024 and r = 273 on a zero-mean cotangent (whose sums cancel, as the
+fit's do) and fed to SE's epilogue (float32 kernel values, their sums in
+float64), holds g_k and g_dk within ``K2_RTOL_CANCEL`` of float64, the
+limit the card checks K2 with; one TF32 pass misses it.
 """
 import numpy as np
 import pytest
 import torch
 
 K3_RTOL = 5e-5  # chip_smoke.K3_RTOL: the JAX gates expr_matvec_*
+K2_RTOL_CANCEL = 1e-4  # chip_smoke.K2_RTOL_CANCEL
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -95,3 +106,63 @@ def test_one_tf32_pass_misses_k3_rtol(r, bn):
     got = tiled_product(K, V, bn, passes=1)
     err = float((got.double() - ref).abs().max())
     assert err > K3_RTOL * float(ref.abs().max())
+
+
+def cotangent_tile(U, W, passes: int):
+    """U Wᵀ as K2 and K4 make it: per 8-wide k-step of r (zero-padded), a
+    float32 partial of 3xTF32 (``u_lo·w_hi``, ``u_hi·w_lo``, then
+    ``u_hi·w_hi``) or one pass (``u_hi·w_hi``), added to a float32
+    accumulator."""
+    r = U.shape[1]
+    pad = -r % 8
+    U = torch.nn.functional.pad(U, (0, pad))
+    W = torch.nn.functional.pad(W, (0, pad))
+    acc = torch.zeros(U.shape[0], W.shape[0], dtype=torch.float32)
+    for k in range(0, r + pad, 8):
+        uh, ul = split(U[:, k:k + 8])
+        wh, wl = split(W[:, k:k + 8])
+        if passes == 3:
+            part = ul @ wh.T
+            part = part + uh @ wl.T
+            part = part + uh @ wh.T
+        else:
+            part = uh @ wh.T
+        acc = acc + part
+    return acc
+
+
+def _se_epilogue(cot, x, ls: float, dtype):
+    """(g_k, g_dk) of SE at lengthscale ``ls``: the kernel value and its ℓ
+    derivative in ``dtype``, their products with the cotangent summed in
+    float64."""
+    d = (x[:, None] - x[None, :]).to(dtype)
+    d2 = d * d
+    k = torch.exp(-0.5 * d2 / ls ** 2)
+    dk = k * d2 / ls ** 3
+    return [float((cot.double() * f.double()).sum()) for f in (k, dk)]
+
+
+def _vjp_case():
+    """Sorted x ~ U(0, 1) (n = 1,024), a zero-mean cotangent U, W ~ N(0, 1)
+    at r = 2·8 + 256 + 1 = 273, the float64 reference (g_k, g_dk)."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(np.sort(rng.uniform(0.0, 1.0, 1024)))
+    U = torch.from_numpy(rng.standard_normal((1024, 273)).astype(np.float32))
+    W = torch.from_numpy(rng.standard_normal((1024, 273)).astype(np.float32))
+    ref = _se_epilogue(U.double() @ W.double().T, x, 0.1, torch.float64)
+    return x, U, W, ref
+
+
+def test_three_tf32_cotangent_tile_holds_float64_within_k2_rtol_cancel():
+    x, U, W, ref = _vjp_case()
+    got = _se_epilogue(cotangent_tile(U, W, passes=3), x.float(), 0.1,
+                       torch.float32)
+    for a, b in zip(got, ref):
+        assert abs(a - b) <= K2_RTOL_CANCEL * abs(b), (a, b)
+
+
+def test_one_tf32_pass_cotangent_tile_misses_k2_rtol_cancel():
+    x, U, W, ref = _vjp_case()
+    got = _se_epilogue(cotangent_tile(U, W, passes=1), x.float(), 0.1,
+                       torch.float32)
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, ref)) > K2_RTOL_CANCEL
