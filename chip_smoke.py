@@ -18,7 +18,7 @@ non-zero):
    with the code generated for each expression of phases 11-17, sm_90a
    (K1 and K3 share the tile loop of csrc/gram_mma.cuh, K2 and K4 that of
    csrc/lowrank_mma.cuh); then ptxas's registers, stack and spills of
-   every K1-K4 instantiation, and a failure if any spills;
+   every K1-K6 instantiation, and a failure if any spills;
 3. K1 check: K1 against its plain PyTorch version on the card at ragged
    shapes (n1 = 3000 and n2 = 5001: neither a multiple of 16 nor of the
    x2 tile; r = 1, 8, 9, 16, 64, 255, 256, 257), for SE, Matérn-3/2 and
@@ -89,8 +89,9 @@ non-zero):
     (the chain-length check of phase 5);
 17. profile: one composite fit step under ``torch.profiler``;
 18. K5/K6 check: ``se_gram`` and ``matern_gram`` against their plain
-    versions at n1 = 3000, n2 = 5001 (SE at d = 1, 3 and 8, ARD SE at d = 3
-    through the router, Matérn-3/2 and -5/2 at d = 1; diag_add 0 and 0.25;
+    versions at n1 = 3000, n2 = 5001 (SE at d = 1, 3, 8, 12 and 40 -- the
+    last two the run-time width --, ARD SE at d = 3 through the router,
+    the Euclidean Matérn-3/2 and -5/2 at d = 1 and 2; diag_add 0 and 0.25;
     square and cross), and the JAX gates ``se_gram_d1``, ``se_gram_d3``,
     ``matern32_gram_d1`` and ``matern52_gram_d1`` (n = 4096, ℓ = 0.1,
     diag_add 0.25) against the plain version in float32 and in float64,
@@ -110,11 +111,17 @@ non-zero):
 21. ``PartitionedGP`` over 4 boxes of d = 2 inputs, N = 20,000 (K5 at
     d = 2), fit and predict; ``fit_segments_vmapped`` of SE~s over the 16
     segments of phase 20, 20 Adam steps as one batched program;
-22. K5 and K6 timed in turns with their plain versions (CUDA events) at
-    the JAX package's benchmark sizes (n = 10,000 and 50,000) and at the
-    dense paths' shapes (16,384², 6,250² and the [100,000 × 256] K_s of a
-    posterior chunk), beside the bound and ``torch.linalg.cholesky`` of the
-    same square matrix;
+22. K5 and K6 at the JAX package's benchmark sizes (n = 10,000 and
+    50,000), at the dense paths' shapes (16,384², 6,250² and the
+    [100,000 × 256] K_s of a posterior chunk, the boxes of phase 21 at
+    d = 2), at ragged segment sizes (m mod 4 = 1, 2 and 3: 6,105², 6,511²,
+    6,511 × 651) and at d = 12 and 20 (K5) and d = 2 for both ν (K6):
+    each checked against its plain version, then its device time (a CUDA
+    graph of back-to-back launches, each into memory of its own, replayed
+    between CUDA events) and share of the bound, and the per-call wall of
+    kernel and plain version in turns (CUDA events over back-to-back
+    calls, the wrappers' host work included), beside
+    ``torch.linalg.cholesky`` of the same square matrix;
 23. a covariance K1-K4 do not cover, ChangePoint(SE~s, SE~s) with a
     sigmoid gate: ``GaussianProcess.posterior`` at N = 20,480 (the chunked
     mBCG route, 200 test points) against the float64 dense posterior on
@@ -138,7 +145,8 @@ K5's and K6's max|diff| / max|ref|, K2's per scalar, K4's per parameter
 array), the kernel's and the plain version's times at the main path's
 shapes (K1 and K3 at r = 256; both also at r = 1 and 9 in
 ``ms_by_width``, beside ``bound_ms_by_width``; K5 and K6 at the 16,384²
-build, every shape of phase 22 in ``ms_by_shape`` and its neighbours; K2
+build in device time, every shape of phase 22 in ``ms_by_shape`` and its
+neighbours, the per-call wall in ``call_ms_by_shape``; K2
 and K4 at r = 273, with ``product_tflops``, the rate of their
 2·n1·n2·r-operation cotangent product), and the bound: the larger of the
 bytes the function must move over 3.35 TB/s and its operations over
@@ -242,21 +250,22 @@ def phase_build() -> None:
         f"csrc/expr_vjp.cu with generated code) in {seconds[-1]:.2f} s")
     spills = _ptxas_lines(cuda_build.library_path("gram_matvec.cu"), "K1")
     spills += _ptxas_lines(cuda_build.library_path("lowrank_vjp.cu"), "K2")
+    spills += _ptxas_lines(cuda_build.library_path("dense_gram.cu"), "K5/K6")
     for name, kernel, d in _expr_cases():
         spills += _ptxas_lines(cuda_expr.library("matvec", _core(kernel), d),
                                f"K3 {name}")
         spills += _ptxas_lines(cuda_expr.library("vjp", _core(kernel), d),
                                f"K4 {name}")
     if spills:
-        raise RuntimeError(f"K1-K4 instantiations spill registers: {spills}")
+        raise RuntimeError(f"kernel instantiations spill registers: {spills}")
 
 
 def _ptxas_lines(library, tag: str) -> list:
     """Print ``-Xptxas -v``'s registers, stack and spills of each kernel of
-    a K1-K4 library (names demangled with cu++filt where it is found), with
-    K1's and K3's column tile, or the blocks of K2's and K4's 256 threads
-    that the register file holds on an SM; returns the names of those that
-    spill."""
+    a library (names demangled with cu++filt where it is found), with K1's
+    and K3's column tile, or the blocks of K2's, K4's, K5's and K6's 256
+    threads that the register file holds on an SM; returns the names of
+    those that spill."""
     from gaussianprocessfundamentals_tpu_torch.ops import cuda_build
 
     report = cuda_build.ptxas_report(library)
@@ -269,16 +278,16 @@ def _ptxas_lines(library, tag: str) -> list:
         names = [k["name"] for k in report]
     spilled = []
     wide = any("(int)32>" in name or "ELi32E" in name for name in names)
-    lowrank = tag.startswith(("K2", "K4"))
-    if not lowrank:
+    per_block = not tag.startswith(("K1", "K3"))
+    if not per_block:
         tag += f" ({256 if wide else 128}-column tiles)"
     for k, name in zip(report, names):
         name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
         name = name[:name.find(">(") + 1] if ">(" in name else name
         spill = k.get("spill_stores", 0) + k.get("spill_loads", 0)
         regs = -(-k.get("registers", 255) // 8) * 8  # allocated in 8s
-        per_sm = (f" ({65536 // (256 * regs)} block(s) per SM)"
-                  if lowrank else "")
+        per_sm = (f" ({min(8, 65536 // (256 * regs))} block(s) per SM)"
+                  if per_block else "")
         log(f"[ptxas] {tag}{per_sm} {name}: {k.get('registers')} registers, "
             f"{k.get('stack')} bytes stack, {k.get('spill_stores')} bytes "
             f"spill stores, {k.get('spill_loads')} bytes spill loads")
@@ -1416,16 +1425,18 @@ def phase_k56_check() -> dict:
     g = torch.Generator().manual_seed(18)
     worst = {"K5": (0.0, 0.0), "K6": (0.0, 0.0)}
     n1, n2 = 3000, 5001
-    cases = [("K5", dg.se_gram, dg.plain_se_gram, d, {}) for d in (1, 3, 8)]
-    cases += [("K6", dg.matern_gram, dg.plain_matern_gram, 1, {"nu": nu})
-              for nu in ("32", "52")]
+    cases = [("K5", dg.se_gram, dg.plain_se_gram, d, {})
+             for d in (1, 3, 8, 12, 40)]
+    cases += [("K6", dg.matern_gram, dg.plain_matern_gram, d, {"nu": nu})
+              for nu in ("32", "52") for d in (1, 2)]
     for name, fn, plain, d, extra in cases:
         x1 = torch.rand(n1, d, generator=g).cuda()
         x2 = torch.rand(n2, d, generator=g).cuda()
+        ls = 0.3 * max(1.0, (d / 8) ** 0.5)  # a Gram that is not all zeros
         for a, b in ((x1, x1), (x1, x2)):
             for diag_add in (0.0, 0.25):
                 worst[name] = _worse(worst[name], _k56_check(
-                    fn, plain, a, b, 0.3, 1.3, diag_add,
+                    fn, plain, a, b, ls, 1.3, diag_add,
                     f"{fn.__name__} {extra.get('nu', '')}".strip(), extra))
     # ARD SE through the router (x scaled by 1/ℓ), against kernel.gram
     ard = gpt.SquaredExponentialKernel(dim=3, scaled=True).set_params({
@@ -1732,17 +1743,80 @@ def _max_abs_diff(a, b, rows: int = 4096) -> float:
                for i in range(0, a.shape[0], rows))
 
 
-def phase_k56_time() -> dict:
+def _replay_ms(graph, replays: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def _device_ms(fn, nbytes: int) -> tuple:
+    """(ms, launches) of one call on the device alone: back-to-back calls
+    captured in a CUDA graph, each output kept so that every launch writes
+    memory of its own (≥ 4 GB over the graph, 80x the L2, up to 20
+    launches: where the outputs land in memory moves a 1 GB build's time
+    by ~5%), the graph replayed for ~100 ms between CUDA events. No host
+    work is timed, so a wrapper that synchronised the host could not be
+    captured."""
+    reps = int(min(20, max(2, -(-4e9 // nbytes))))
+    fn()
+    torch.cuda.synchronize()
+    graph, kept = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            kept.append(fn())
+    once = _replay_ms(graph, 1)
+    ms = _replay_ms(graph, int(min(200, max(3, 100 / once)))) / reps
+    del graph, kept
+    torch.cuda.empty_cache()
+    return ms, reps
+
+
+def _cholesky_after(build, reps: int) -> float:
+    """ms of ``torch.linalg.cholesky_ex`` of a square Gram right after its
+    build, the cache state the dense route leaves it in: the best of
+    ``reps``, each after a fresh build."""
+    best = float("inf")
+    for _ in range(reps):
+        K = build()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.linalg.cholesky_ex(K)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+        del K
+    return best
+
+
+def phase_k56_time(dg=None, label: str = "") -> dict:
     """K5 and K6 at the JAX package's benchmark sizes (``bench_pallas.py:
-    64-69``: ℓ = 0.1, var = 1.3, diag_add = 0.01 + 1e-6) and at every shape
-    the dense paths give them: each output held against the plain version
-    on the same inputs (max|diff| ≤ K56_RTOL·max|ref|), then both timed in
-    turns, beside the bound and the Cholesky of the same square matrix.
-    The paths' square builds carry σ² + the float32 effective jitter."""
+    64-69``: ℓ = 0.1, var = 1.3, diag_add = 0.01 + 1e-6), at every shape
+    the dense paths give them, at ragged segment sizes (m mod 4 = 1, 2, 3)
+    and at d = 12 and 20 (K5, ℓ = 0.1·√(d/2)) and d = 2 (K6, both ν): each
+    output held against the plain version on the same inputs (max|diff| ≤
+    K56_RTOL·max|ref|), then the kernel's device time (:func:`_device_ms`)
+    and the per-call wall of kernel and plain version in turns, beside the
+    bound and, for a square build, the Cholesky right after it
+    (:func:`_cholesky_after`). The paths' square builds carry σ² + the
+    float32 effective jitter.
+
+    ``dg`` is the ``cuda_dense_gram`` module timed (by default this
+    checkout's); ``tools/dense_gram_times.py`` passes another checkout's
+    with its ``label``, and then a build that checkout refuses
+    (NotImplementedError) is reported and skipped."""
     from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import (
         effective_jitter_of_diag,
     )
-    from gaussianprocessfundamentals_tpu_torch.ops import cuda_dense_gram as dg
+    if dg is None:
+        from gaussianprocessfundamentals_tpu_torch.ops import (
+            cuda_dense_gram as dg,
+        )
 
     rng = np.random.default_rng(22)
     bench_diag = 0.01 + 1e-6
@@ -1751,6 +1825,9 @@ def phase_k56_time() -> dict:
         torch.full((1,), var), 1e-8))
     part_n = N_PART // 4  # one box of phase 21
     seg_n, seg_t = N_SEG // S_SEG, T_SEG // S_SEG
+    # phase 20's segments hold 6,105-6,511 rows: m % 4 = 1, 2 and 3
+    seg_lo, seg_hi = 6_105, 6_511
+    prefix = f"[time]{f' [{label}]' if label else ''}"
     out = {"K5": {}, "K6": {}, "worst": {"K5": (0.0, 0.0), "K6": (0.0, 0.0)}}
     for n, m, d, diag, tag in (
             *((n, n, 1, bench_diag, f"{n}^2") for n in BENCH_N),
@@ -1758,47 +1835,66 @@ def phase_k56_time() -> dict:
             (N_DENSE, T_MAIN, 1, 0.0, f"{N_DENSE}x{T_MAIN}"),
             (seg_n, seg_n, 1, path_diag, f"{seg_n}^2"),
             (seg_n, seg_t, 1, 0.0, f"{seg_n}x{seg_t}"),
+            (seg_lo, seg_lo, 1, path_diag, f"{seg_lo}^2"),
+            (seg_hi, seg_hi, 1, path_diag, f"{seg_hi}^2"),
+            (seg_hi, seg_hi // 10, 1, 0.0, f"{seg_hi}x{seg_hi // 10}"),
             (N_MAIN, 256, 1, 0.0, f"{N_MAIN}x256"),
             (part_n, part_n, 2, path_diag, f"{part_n}^2 d=2"),
-            (part_n, 2000 // 4, 2, 0.0, f"{part_n}x{2000 // 4} d=2")):
+            (part_n, 2000 // 4, 2, 0.0, f"{part_n}x{2000 // 4} d=2"),
+            *((seg_n, seg_n, d, path_diag, f"{seg_n}^2 d={d}")
+              for d in (12, 20))):
         x1 = torch.tensor(np.sort(rng.uniform(0, 1, (n, d)), axis=0),
                           dtype=torch.float32).cuda()
         x2 = x1 if n == m else torch.rand(m, d).cuda()
+        ls = 0.1 * max(1.0, (d / 2) ** 0.5)
         reps = 2 if n * m > 1e9 else 10
         bound_ms, bound_by = _gram_bound(n, m, d)
-        for name, fn, plain, extra in (
-                ("K5", dg.se_gram, dg.plain_se_gram, {}),
-                ("K6", dg.matern_gram, dg.plain_matern_gram, {"nu": "52"})):
-            if name == "K6" and d > 1:
-                continue  # K6 is the d = 1 Matérn
-            ref = plain(x1, x2, 0.1, var, diag, **extra)
-            K = fn(x1, x2, 0.1, var, diag, **extra)
+        builds = [("K5", "", dg.se_gram, dg.plain_se_gram, {})]
+        if d <= 2:
+            builds.append(("K6", "", dg.matern_gram, dg.plain_matern_gram,
+                           {"nu": "52"}))
+        if d == 2:
+            builds.append(("K6", " nu=3/2", dg.matern_gram,
+                           dg.plain_matern_gram, {"nu": "32"}))
+        for name, nu_tag, fn, plain, extra in builds:
+            def call():
+                return fn(x1, x2, ls, var, diag, **extra)
+
+            try:
+                K = call()
+            except NotImplementedError as e:
+                if not label:
+                    raise
+                log(f"{prefix} {name} {tag}{nu_tag}: refused ({e})")
+                continue
+            ref = plain(x1, x2, ls, var, diag, **extra)
             torch.cuda.synchronize()
             err, scale = _max_abs_diff(K, ref), float(ref.abs().max())
-            del ref
             ok = bool(torch.isfinite(K).all()) and err <= K56_RTOL * scale
+            del K, ref
+            torch.cuda.empty_cache()
             out["worst"][name] = _worse(out["worst"][name], (err, err / scale))
-            chol_ms = None
-            if n == m:
-                chol_ms = _time_ms(lambda: torch.linalg.cholesky_ex(K),
-                                   1 if n >= 50_000 else 3)
-            del K
-            torch.cuda.empty_cache()
-            ms, plain_ms = _abba_ms(
-                lambda: fn(x1, x2, 0.1, var, diag, **extra),
-                lambda: plain(x1, x2, 0.1, var, diag, **extra), reps)
-            torch.cuda.empty_cache()
-            log(f"[time] {name} {tag} diag_add={diag:.6g}: vs plain max|diff| "
-                f"{err:.3e} (limit {K56_RTOL:g} x max|ref| {scale:.3e}) "
-                f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}): "
-                f"{100 * bound_ms / ms:.1f}% of the bound; cholesky of the "
-                f"same matrix "
-                f"{'-' if chol_ms is None else f'{chol_ms:.3f} ms'}")
             if not ok:
                 raise RuntimeError(f"{fn.__name__} disagrees with its plain "
-                                   f"version at {tag}")
-            out[name][tag] = (ms, plain_ms, bound_ms, bound_by, chol_ms)
+                                   f"version at {tag}{nu_tag}")
+            chol_ms = None
+            if n == m:
+                chol_ms = _cholesky_after(call, 1 if n >= 50_000 else 3)
+                torch.cuda.empty_cache()
+            dev_ms, graph_reps = _device_ms(call, 4 * n * m)
+            call_ms, plain_ms = _abba_ms(
+                call, lambda: plain(x1, x2, ls, var, diag, **extra), reps)
+            torch.cuda.empty_cache()
+            log(f"{prefix} {name} {tag}{nu_tag} diag_add={diag:.6g}: vs "
+                f"plain max|diff| {err:.3e} (limit {K56_RTOL:g} x max|ref| "
+                f"{scale:.3e}) ok; device {dev_ms:.4f} ms (graph of "
+                f"{graph_reps} launches), {100 * bound_ms / dev_ms:.1f}% of "
+                f"the bound {bound_ms:.4f} ms ({bound_by}); per call "
+                f"{call_ms:.4f} ms; plain {plain_ms:.4f} ms; cholesky right "
+                f"after a build "
+                f"{'-' if chol_ms is None else f'{chol_ms:.3f} ms'}")
+            out[name][tag + nu_tag] = (dev_ms, plain_ms, bound_ms, bound_by,
+                                       chol_ms, call_ms)
         del x1, x2
         torch.cuda.empty_cache()
     return out
@@ -2027,7 +2123,7 @@ def main() -> None:
                               by_path[name], k56_worst[name],
                               shapes[f"{N_DENSE}^2"][:4])
         for i, key in enumerate(("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "cholesky_ms")):
+                                 "cholesky_ms", "call_ms")):
             entry[f"{key}_by_shape"] = {t: v[i] for t, v in shapes.items()}
         entry["dense_posterior_ms"] = dense["se" if name == "K5" else "mat52"]
         k56.append(entry)

@@ -9,7 +9,8 @@ skipped where no GPU is present, run on one with
 need not have; this file imports no JAX). K1's tolerances are those of
 ``test_torch_gram_matvec.py``, K2's those of ``test_torch_lowrank_vjp.py``,
 K3's and K4's those of ``chip_smoke.py`` phases 11 and 12, K5's and K6's
-the JAX gates ``se_gram_*`` and ``matern*_gram_d1`` (2e-5·max|ref|).
+the JAX gates ``se_gram_*`` and ``matern*_gram_d1`` (2e-5·max|ref|), at
+any d and, for K6, in the Euclidean form.
 """
 import copy
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import gaussianprocessfundamentals_tpu_torch as gpt
+from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import noised
 from gaussianprocessfundamentals_tpu_torch.models.exact import prior_draws
 from gaussianprocessfundamentals_tpu_torch.ops import (
     cuda_dense_gram,
@@ -529,15 +531,23 @@ def test_cross_router_with_white_noise_on_card(cuda):
 # --- K5 and K6: the dense Gram kernels --------------------------------------
 
 @pytest.mark.parametrize("kind,d", [("se", 1), ("se", 2), ("se", 3), ("se", 5),
-                                    ("se", 8), ("32", 1), ("52", 1)])
+                                    ("se", 8), ("se", 9), ("se", 12),
+                                    ("se", 20), ("se", 40), ("32", 1),
+                                    ("52", 1), ("32", 2), ("52", 2),
+                                    ("52", 12)])
 @pytest.mark.parametrize("n,m,diag_add", [(700, 700, 0.0), (700, 700, 0.25),
-                                          (333, 1001, 0.25), (1001, 258, 0.0)])
+                                          (333, 1001, 0.25), (1001, 258, 0.0),
+                                          (515, 515, 0.25), (97, 3, 0.25)])
 def test_dense_gram_matches_plain_on_card(cuda, kind, d, n, m, diag_add):
-    """Square and cross, m a multiple of 4 (float4 stores) and not, with
-    the diagonal on global row = column."""
+    """Square and cross, m at each residue mod 4 (the row starts' alignment
+    to 16 bytes) and below 4, the diagonal on global row = column; d = 1-8
+    compile-time widths, above 8 the run-time width (d = 40: two 32-wide
+    chunks), the Matérn Euclidean at d > 1. The lengthscale grows as √d
+    above d = 8, so that the Gram is not all zeros off the diagonal."""
     g = torch.Generator().manual_seed(n + m + d)
     x1 = torch.rand(n, d, generator=g).to(cuda)
     x2 = x1 if n == m else torch.rand(m, d, generator=g).to(cuda)
+    ls = 0.3 if d <= 8 else 0.15 * d ** 0.5
     if kind == "se":
         fn, plain, extra = (cuda_dense_gram.se_gram,
                             cuda_dense_gram.plain_se_gram, {})
@@ -545,27 +555,120 @@ def test_dense_gram_matches_plain_on_card(cuda, kind, d, n, m, diag_add):
         fn, plain, extra = (cuda_dense_gram.matern_gram,
                             cuda_dense_gram.plain_matern_gram, {"nu": kind})
     before = fn.launches
-    got = fn(x1, x2, 0.3, 1.3, diag_add, **extra)
+    got = fn(x1, x2, ls, 1.3, diag_add, **extra)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    ref = plain(x1, x2, 0.3, 1.3, diag_add, **extra)
+    ref = plain(x1, x2, ls, 1.3, diag_add, **extra)
     assert got.shape == (n, m) and torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    # the same scalars as 0-d device tensors, read by the kernel
+    dev = [torch.tensor(v, device=cuda) for v in (ls, 1.3, diag_add)]
+    assert torch.equal(fn(x1, x2, *dev, **extra), got)
 
 
 def test_dense_gram_refuses_what_it_does_not_cover(cuda):
     x = torch.rand(10, 2, device=cuda)
-    with pytest.raises(NotImplementedError, match="d = 1"):
-        cuda_dense_gram.matern_gram(x, x, 0.3)
-    with pytest.raises(NotImplementedError, match="d <= 8"):
-        x9 = torch.rand(10, 9, device=cuda)
-        cuda_dense_gram.se_gram(x9, x9, 0.3)
     with pytest.raises(TypeError):
         cuda_dense_gram.se_gram(x.double(), x.double(), 0.3)
     with pytest.raises(RuntimeError, match="forward-only"):
         cuda_dense_gram.se_gram(x.clone().requires_grad_(), x, 0.3)
     with pytest.raises(ValueError, match="one CUDA device"):
         cuda_dense_gram.se_gram(x, x.cpu(), 0.3)
+    with pytest.raises(ValueError, match="scalars"):
+        cuda_dense_gram.se_gram(x, x, torch.tensor([0.3, 0.4], device=cuda))
+
+
+def test_dense_gram_builds_make_no_host_read(cuda):
+    """The dense posterior's Gram builds (K + shift through noised_gram,
+    K_s and K_ss through dense_gram_for) with the hyperparameters, the
+    noise and the jitter floor on the device: no synchronisation, under
+    torch.cuda.set_sync_debug_mode("error")."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(600, 1, generator=g).to(cuda)
+    xt = torch.rand(50, 1, generator=g).to(cuda)
+    cases = [
+        (gpt.SquaredExponentialKernel(scaled=True).set_params(
+            {"lengthscale": torch.tensor(0.2), "variance": torch.tensor(1.1)}),
+         1),
+        (gpt.SquaredExponentialKernel(dim=2, scaled=True).set_params({
+            "lengthscale": torch.tensor([0.2, 0.4]),
+            "variance": torch.tensor(0.9)}), 2),
+        (gpt.Matern52Kernel(scaled=True).set_params(
+            {"lengthscale": torch.tensor(0.1), "variance": torch.tensor(0.7)}),
+         1),
+    ]
+    for k, d in cases:
+        k = k.to(cuda)
+        a, b = x.repeat(1, d), xt.repeat(1, d)
+        noise = torch.tensor(1e-2, device=cuda)
+        launches = (cuda_dense_gram.se_gram.launches
+                    + cuda_dense_gram.matern_gram.launches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            Kn = cuda_dense_gram.noised_gram(k, a, noise, 1e-8)
+            Kf = cuda_dense_gram.noised_gram(k, a, 1e-2, 1e-8)
+            K_s = cuda_dense_gram.dense_gram_for(k, a, b)
+            K_ss = cuda_dense_gram.dense_gram_for(k, b, b, 1e-6)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (cuda_dense_gram.se_gram.launches
+                + cuda_dense_gram.matern_gram.launches) == launches + 4
+        ref = noised(k.gram(a, a), 1e-2, 1e-8)
+        eye = torch.eye(50, device=cuda)
+        for got, want in ((Kn, ref), (Kf, ref), (K_s, k.gram(a, b)),
+                          (K_ss, k.gram(b, b) + 1e-6 * eye)):
+            assert float((got - want).abs().max()) <= (
+                2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("noise", ["tensor", "float"])
+@pytest.mark.parametrize("name", ["se", "mat52"])
+def test_dense_posterior_gram_builds_make_no_host_read(cuda, monkeypatch,
+                                                        name, noise):
+    """A dense posterior through the facade (``GaussianProcess.posterior``,
+    method="dense", full_cov=True) with each of its Gram builds (K + shift,
+    K_s, K_ss) run under torch.cuda.set_sync_debug_mode("error"), on the
+    arguments the model passes them: the noise as a fit leaves it (a 0-d
+    device tensor) or as a float, the jitter of the model's config. The
+    Cholesky and the solves between the builds are outside the check."""
+    from gaussianprocessfundamentals_tpu_torch.models import exact
+
+    def strict(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    monkeypatch.setattr(exact, "noised_gram", strict(exact.noised_gram))
+    monkeypatch.setattr(exact, "dense_gram_for",
+                        strict(exact.dense_gram_for))
+    g = torch.Generator().manual_seed(7)
+    x = torch.sort(torch.rand(1000, 1, generator=g), dim=0).values
+    y = torch.sin(8 * x[:, 0]) + 0.1 * torch.randn(1000, generator=g)
+    xt = torch.linspace(0, 1, 60)[:, None]
+    leaf = (gpt.SquaredExponentialKernel if name == "se"
+            else gpt.Matern52Kernel)
+    k = leaf(scaled=True).set_params(
+        {"lengthscale": torch.tensor(0.1), "variance": torch.tensor(1.0)})
+    gp = gpt.GaussianProcess(copy.deepcopy(k), noise=(
+        torch.tensor(1e-2, device=cuda) if noise == "tensor" else 1e-2),
+        device=cuda).set_data(x, y)
+    wrapper = (cuda_dense_gram.se_gram if name == "se"
+               else cuda_dense_gram.matern_gram)
+    before = wrapper.launches
+    post, cov = gp.posterior(xt, full_cov=True, method="dense")
+    assert wrapper.launches == before + 3
+    gp64 = gpt.GaussianProcess(copy.deepcopy(k).double(), noise=1e-2,
+                               device=cuda).set_data(x.double(), y.double())
+    ref, ref_cov = gp64.posterior(xt.double(), full_cov=True, method="dense")
+    assert float((post.mean.double() - ref.mean).abs().max()) <= 1e-3
+    assert float((cov.double() - ref_cov).abs().max()) <= (
+        0.1 * float(ref_cov.abs().max()))
 
 
 def test_dense_router_routes_by_kernel_type_and_dtype(cuda):

@@ -38,7 +38,8 @@ def _x(n, d=1, seed=0):
     return np.random.default_rng(seed).uniform(0, 1, (n, d)).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,m,d", [(64, 64, 1), (100, 80, 3), (256, 256, 2)])
+@pytest.mark.parametrize("n,m,d", [(64, 64, 1), (100, 80, 3), (256, 256, 2),
+                                   (60, 45, 12)])
 def test_se_gram_matches_jax(n, m, d):
     x1, x2 = _x(n, d, 0), _x(m, d, 1)
     got = dg.se_gram(torch.from_numpy(x1), torch.from_numpy(x2), 0.3, 1.5)
@@ -49,14 +50,37 @@ def test_se_gram_matches_jax(n, m, d):
     assert dg.se_gram.launches == 0  # CPU tensors: the plain version
 
 
+@pytest.mark.parametrize("d", [1, 2, 3])
 @pytest.mark.parametrize("nu", ["32", "52"])
-def test_matern_gram_matches_jax(nu):
-    x1, x2 = _x(64, 1, 0), _x(64, 1, 1)
+def test_matern_gram_matches_jax(nu, d):
+    """The Euclidean Matérn at every d, as the JAX package computes it (the
+    leaves' Manhattan form equals it only at d = 1)."""
+    x1, x2 = _x(64, d, 0), _x(64, d, 1)
     got = dg.matern_gram(torch.from_numpy(x1), torch.from_numpy(x2), 0.25,
                          0.8, nu=nu)
     ref = np.asarray(jax_matern_gram(jnp.asarray(x1), jnp.asarray(x2), 0.25,
                                      0.8, nu=nu, interpret=True))
     np.testing.assert_allclose(got.numpy(), ref, atol=5e-5)
+
+
+@pytest.mark.parametrize("diag_add", [0.3, 0.0, -0.2])
+@pytest.mark.parametrize("kind", ["se", "32", "52"])
+def test_tensor_hyperparameters_match_floats(kind, diag_add):
+    """0-d tensors for ℓ, σ² and diag_add give the Gram that floats give; a
+    diag_add ≤ 0 adds nothing, as ``pl.when(diag > 0.0)`` on the TPU."""
+    x1, x2 = torch.from_numpy(_x(40, 2, 11)), torch.from_numpy(_x(30, 2, 12))
+    fn, extra = (dg.se_gram, {}) if kind == "se" else (
+        dg.matern_gram, {"nu": kind})
+    floats = fn(x1, x2, 0.3, 1.4, diag_add, **extra)
+    tensors = fn(x1, x2, torch.tensor(0.3), torch.tensor(1.4),
+                 torch.tensor(diag_add), **extra)
+    torch.testing.assert_close(tensors, floats, rtol=0, atol=0)
+    bare = fn(x1, x2, 0.3, 1.4, **extra)
+    if diag_add <= 0.0:
+        assert torch.equal(tensors, bare)
+    else:
+        torch.testing.assert_close((tensors - bare)[:30, :30],
+                                   diag_add * torch.eye(30), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("n,m", [(96, 96), (100, 60), (60, 100)])
@@ -122,16 +146,35 @@ def _kernels(d):
     return {"se-ard": se, "m52": m52}
 
 
+@pytest.mark.parametrize("route", ["gram", "kernels"])
 @pytest.mark.parametrize("name", ["se-ard", "m52"])
-def test_router_and_noised_gram_on_the_cpu(name):
+def test_router_and_noised_gram_on_the_cpu(name, route, monkeypatch):
+    """``kernel.gram`` on the CPU, and the kernels' route (forced here onto
+    the wrappers' plain versions), which takes the hyperparameters and the
+    noised shift as device tensors, against it."""
     d = 2 if name == "se-ard" else 1
     kernel = _kernels(d)[name]
     x = torch.from_numpy(_x(50, d, 5).astype(np.float64))
     xt = torch.from_numpy(_x(20, d, 6).astype(np.float64))
-    assert torch.equal(dg.dense_gram_for(kernel, x, xt), kernel.gram(x, xt))
+    # kernel.gram itself on the CPU; the wrappers' direct differences
+    # against the leaves' expanded float64 form on the kernels' route
+    atol = 1e-15
+    if route == "kernels":
+        atol = 1e-14
+        wrapper = (dg.se_gram, {}) if name == "se-ard" else (
+            dg.matern_gram, {"nu": "52"})
+        monkeypatch.setattr(dg, "_kernel_route", lambda k, x1: wrapper)
+    got = dg.dense_gram_for(kernel, x, xt)
+    if route == "gram":
+        assert torch.equal(got, kernel.gram(x, xt))
+    else:
+        torch.testing.assert_close(got, kernel.gram(x, xt), rtol=0,
+                                   atol=atol)
     K = kernel.gram(x, x)
-    torch.testing.assert_close(dg.noised_gram(kernel, x, 0.05, 1e-8),
-                               chol.noised(K, 0.05, 1e-8), rtol=0, atol=1e-15)
+    for noise in (0.05, torch.tensor(0.05, dtype=torch.float64)):
+        torch.testing.assert_close(dg.noised_gram(kernel, x, noise, 1e-8),
+                                   chol.noised(K, 0.05, 1e-8), rtol=0,
+                                   atol=atol)
     with pytest.raises(ValueError, match="square"):
         dg.dense_gram_for(kernel, x, xt, 0.1)
 
