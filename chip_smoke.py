@@ -1,7 +1,10 @@
 """Drive the PyTorch port's serving and training paths once on one GPU:
-for an SE kernel (K1 and K2), for the Mauna Loa composite (K3 and K4), and
-on the dense exact route with its Gram kernels (K5 and K6): dense serving,
-sampling, and segmented GPs at N = 100k.
+for an SE kernel (K1 and K2), for the Mauna Loa composite (K3 and K4), on
+the dense exact route with its Gram kernels (K5 and K6): dense serving,
+sampling, and segmented GPs at N = 100k; then the JAX package's 50k
+variance gate, a fit and posterior at N = 200k, where a float32 K cannot
+exist on the card, and the approximations (Nyström with its
+projected-process posterior through K5/K6, the SKC bounds, SKI).
 
     python3 chip_smoke.py
 
@@ -114,8 +117,10 @@ non-zero):
 22. K5 and K6 at the JAX package's benchmark sizes (n = 10,000 and
     50,000), at the dense paths' shapes (16,384², 6,250² and the
     [100,000 × 256] K_s of a posterior chunk, the boxes of phase 21 at
-    d = 2), at ragged segment sizes (m mod 4 = 1, 2 and 3: 6,105², 6,511²,
-    6,511 × 651) and at d = 12 and 20 (K5) and d = 2 for both ν (K6):
+    d = 2, the Nyström posterior's 100,000 × 2,048, 2,048² and
+    1,000 × 2,048 of phase 26), at ragged segment sizes (m mod 4 = 1, 2
+    and 3: 6,105², 6,511², 6,511 × 651) and at d = 12 and 20 (K5) and
+    d = 2 for both ν (K6):
     each checked against its plain version, then its device time (a CUDA
     graph of back-to-back launches, each into memory of its own, replayed
     between CUDA events) and share of the bound, and the per-call wall of
@@ -130,7 +135,34 @@ non-zero):
     RMSE < 0.01), a streamed NLL + gradient at n = 4096 against the
     float64 dense ones (phase 7's gates), and one at n = 45,000, above the
     materialisation cap: the routers take the plain streamed versions, and
-    no K1-K4 launch is counted.
+    no K1-K4 launch is counted;
+24. the JAX gate ``posterior_var_50k_vs_f64_oracle``: the float32
+    ``iterative_posterior`` at n = 50,000 on the grid i/(n−1) (SE ℓ = 0.05,
+    σ² = 1e-2, 32 test points) against the float64 Toeplitz/FFT oracle
+    (``utils/toeplitz_oracle.py``): max|var − oracle| < 1e-3, the oracle's
+    relative residual < 1e-10, μ's error printed (and, not gated, the
+    same problem on the chunked route, which reports each solve's CG
+    iterations and true residual);
+25. the 200k story: ``GaussianProcess(SE~s, Constant + Linear).fit(
+    method="auto")`` at N = 200,000 (a float32 K would be 160 GB), 30 Adam
+    steps with phase 8's knobs, then ``.posterior`` at 1,000 points on the
+    chunked route: NLL history, skipped steps (none allowed), recovered
+    noise and mean, CG residuals (≤ 1e-3), RMSE against the noise-free
+    function (< 0.01), peak memory (< 8 GB), K1/K2/K5 launches;
+26. example 08 at N = 100,000: a Nyström fit of SE~s (20 Adam steps,
+    m = 2,048 inducing inputs optimised), then the facade's
+    projected-process posterior at 1,000 points, exactly one K5 launch per
+    Gram (K_nm, K_mm, K_tm), μ within 1e-3·max|μ| and var within
+    5e-2·max|var| of ``nystroem_posterior`` in float64 at the same
+    parameters, inducing set and jitter level (the one the float32 K_mm
+    needed; the distance to the float64 posterior at the configuration's
+    jitter, another regularisation, is printed beside it); each Gram
+    shape held against the plain version; the same for Matérn-5/2~s (K6),
+    and for SE~s at the default ratio m = 10,000 after 3 steps;
+27. the SKC bounds and the Nyström log likelihood at n = 4,096 (float32,
+    value and gradient): skc_lower ≤ float64 dense log likelihood ≤
+    skc_upper; SKI's two log likelihoods at N = 20,000 on 2,000 grid
+    points, value and gradient finite, with their CG iteration counts.
 
 Each path's launch counts (all six kernels) are set to 0 just before it
 is driven and read just after. The second-to-last line, after the card's
@@ -139,7 +171,9 @@ launches on the main paths (``launches``: the sum; ``launches_by_path``:
 the SE posterior of phase 5, the SE fit of phase 8, the composite fit of
 phase 14, the composite posterior of phase 15, the dense posteriors of
 phase 19, the segmented and partitioned paths of phases 20 and 21, the
-ChangePoint posterior of phase 23), the largest absolute and relative
+ChangePoint posterior of phase 23, the 50k gate of phase 24, the 200k fit
+and posterior of phase 25, the Nyström posteriors of phase 26), the
+largest absolute and relative
 differences from the plain version over the checks (relative: K1's, K3's,
 K5's and K6's max|diff| / max|ref|, K2's per scalar, K4's per parameter
 array), the kernel's and the plain version's times at the main path's
@@ -1839,6 +1873,9 @@ def phase_k56_time(dg=None, label: str = "") -> dict:
             (seg_hi, seg_hi, 1, path_diag, f"{seg_hi}^2"),
             (seg_hi, seg_hi // 10, 1, 0.0, f"{seg_hi}x{seg_hi // 10}"),
             (N_MAIN, 256, 1, 0.0, f"{N_MAIN}x256"),
+            (N_NY, M_NY, 1, 0.0, f"{N_NY}x{M_NY}"),
+            (M_NY, M_NY, 1, 0.0, f"{M_NY}^2"),
+            (T_MAIN, M_NY, 1, 0.0, f"{T_MAIN}x{M_NY}"),
             (part_n, part_n, 2, path_diag, f"{part_n}^2 d=2"),
             (part_n, 2000 // 4, 2, 0.0, f"{part_n}x{2000 // 4} d=2"),
             *((seg_n, seg_n, d, path_diag, f"{seg_n}^2 d={d}")
@@ -2054,6 +2091,370 @@ def phase_changepoint() -> dict:
     return {"counts": counts}
 
 
+# --- the scale clauses and the approximation slice -------------------------
+
+N_GATE, T_GATE = 50_000, 32  # check_pallas_tpu.py:413-431
+N_STORY, STORY_STEPS = 200_000, 30  # VERDICT.md "Next round" #2
+N_NY, M_NY, NY_STEPS = 100_000, 2_048, 20  # examples/08_approx_fit.py
+# the JAX package's default ratio, m = 0.1·n: 3 steps, for the smoke's time
+M_NY_RATIO, NY_STEPS_RATIO = 10_000, 3
+N_SKC, M_SKC = 4_096, 128
+N_SKI, M_SKI = 20_000, 2_000  # the default ratio, m = n/10
+
+
+def phase_var_gate() -> dict:
+    """The JAX gate ``posterior_var_50k_vs_f64_oracle``
+    (``benchmarks/check_pallas_tpu.py:397-431``): the float32
+    ``iterative_posterior`` at n = 50,000 on the grid i/(n−1), SE ℓ = 0.05,
+    σ² = 1e-2, 32 test points, against the float64 Toeplitz/FFT oracle:
+    max|var − var_oracle| < 1e-3 (k_ii = 1), the oracle's own relative
+    residual < 1e-10."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.utils.toeplitz_oracle import (
+        se_grid_posterior_oracle,
+    )
+
+    n, ell, nz = N_GATE, 0.05, 1e-2
+    rng = np.random.default_rng(1)
+    xs = rng.uniform(0.05, 0.95, T_GATE)
+    g = np.arange(n) / (n - 1)
+    y = np.sin(2 * np.pi * 3 * g) + 0.1 * rng.standard_normal(n)
+    t0 = time.perf_counter()
+    mu_t, var_t, orc_rel = se_grid_posterior_oracle(n, ell, nz, xs, y)
+    orc_wall = time.perf_counter() - t0
+    kernel = gpt.SquaredExponentialKernel().set_params(
+        {"lengthscale": torch.tensor(ell)}).cuda()
+    x = torch.tensor(g, dtype=torch.float32, device="cuda")[:, None]
+    yt = torch.tensor(y, dtype=torch.float32, device="cuda")
+    xt = torch.tensor(xs, dtype=torch.float32, device="cuda")[:, None]
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    mu, var = gpt.iterative_posterior(kernel, x, yt, xt, nz, max_iters=100,
+                                      tol=1e-7, precond_m=256)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    var_err = float(np.max(np.abs(var.double().cpu().numpy() - var_t)))
+    mu_err = float(np.max(np.abs(mu.double().cpu().numpy() - mu_t)))
+    log(f"[var-gate] n={n} t={T_GATE} SE l={ell} noise={nz} float32 "
+        f"iterative_posterior(max_iters=100, tol=1e-7, precond_m=256): wall "
+        f"{wall:.3f} s, launches {counts}; float64 Toeplitz oracle ({orc_wall:.2f}"
+        f" s, rel resid {orc_rel:.2e}, limit 1e-10): var max|diff| "
+        f"{var_err:.3e} (limit 1e-3 = 1e-3 x k_ii), mu max|diff| {mu_err:.3e}, "
+        f"true var range [{var_t.min():.3e}, {var_t.max():.3e}]")
+    # not gated: μ's solve, on the chunked route, which reports the CG
+    # iterations and true residual of every solve
+    stats = {}
+    mu_c, _ = gpt.iterative_posterior_chunked(kernel, x, yt, xt, nz,
+                                              max_iters=100, tol=1e-7,
+                                              precond_m=256, stats=stats)
+    log(f"[var-gate] the same problem on the chunked route: CG iterations "
+        f"{stats['iters']} (cap 100), true rel resid "
+        f"{[float(f'{r:.3e}') for r in stats['rel_resid']]} (the y-solve "
+        f"first), mu max|diff| "
+        f"{float(np.max(np.abs(mu_c.double().cpu().numpy() - mu_t))):.3e}")
+    checks = {
+        "oracle rel resid < 1e-10": orc_rel < 1e-10,
+        "var within 1e-3 of the oracle": var_err < 1e-3,
+        "finite": bool(torch.isfinite(mu).all() and torch.isfinite(var).all()),
+        "K1 launched": counts["K1"] > 0,
+        "K5 launched once (K_s)": counts["K5"] == 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"50k variance gate failed: {failed}")
+    return {"counts": counts}
+
+
+def phase_story_200k() -> dict:
+    """The 200k story: ``GaussianProcess(SE~s, Constant + Linear).fit(
+    method="auto")`` at N = 200,000, where a float32 K would take 160 GB
+    (the card has 80), 30 Adam steps with the 100k story's knobs, then
+    ``.posterior`` at 1,000 points on the chunked route."""
+    x, y = _trend_data(N_STORY, seed=24)
+    gp = _fit_model()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = gp.fit(x, y, **dict(FIT_KWARGS, steps=STORY_STEPS))
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_counts = _launch_counts()
+    xt = torch.linspace(0.01, 0.99, T_MAIN, device="cuda")[:, None]
+    t0 = time.perf_counter()
+    post = gp.posterior(xt)
+    torch.cuda.synchronize()
+    post_wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = [float(v) for v in res.history]
+    frozen = res.diagnostics["frozen_frac"]
+    c = float(res.mean_params["children"][0]["c"])
+    slope = float(res.mean_params["children"][1]["slope"][0])
+    truth = 2.0 + 3.0 * xt[:, 0] + torch.sin(8.0 * xt[:, 0])
+    rmse = float(torch.sqrt(torch.mean((post.mean - truth) ** 2)))
+    stats = post.solve_stats
+    chunks = -(-T_MAIN // 256)
+    log(f"[story-200k] N={N_STORY} fit(method='auto'), {STORY_STEPS} Adam "
+        f"steps: wall {fit_wall:.3f} s, {fit_wall / STORY_STEPS:.3f} s/step "
+        f"(first step included), launches {fit_counts}; NLL history "
+        f"{[float(f'{v:.2f}') for v in hist]}; skipped steps "
+        f"{round(frozen * STORY_STEPS)} (frozen_frac {frozen}); noise "
+        f"{float(res.noise):.5f} (data 1e-2), const {c:.4f} (2.0), slope "
+        f"{slope:.4f} (3.0), lengthscale "
+        f"{float(res.kernel_params['lengthscale']):.5f}, variance "
+        f"{float(res.kernel_params['variance']):.5f}")
+    log(f"[story-200k] posterior at {T_MAIN} points: wall {post_wall:.3f} s, "
+        f"CG iters {stats['iters']}, true rel resid "
+        f"{[float(f'{r:.3e}') for r in stats['rel_resid']]}, mean RMSE vs the "
+        f"noise-free function {rmse:.5f}, var range "
+        f"[{float(post.var.min()):.3e}, {float(post.var.max()):.3e}]; fit + "
+        f"posterior launches {counts}; peak mem {peak / 1e9:.3f} GB (a "
+        f"float32 K: {4 * N_STORY ** 2 / 1e9:.0f} GB)")
+    checks = {
+        "NLL history finite": all(np.isfinite(hist)),
+        "last NLL below first": hist[-1] < hist[0],
+        "no step skipped": frozen == 0.0,
+        f"K2 launches == {STORY_STEPS}": fit_counts["K2"] == STORY_STEPS,
+        "K1 launched": fit_counts["K1"] > 0,
+        f"K5 launched once per chunk ({chunks})":
+        counts["K5"] - fit_counts["K5"] == chunks,
+        "max rel CG resid <= 1e-3": max(stats["rel_resid"]) <= 1e-3,
+        "mean RMSE < 0.01": rmse < 0.01,
+        "posterior finite, var >= 0": bool(
+            torch.isfinite(post.mean).all() and torch.isfinite(post.var).all()
+            and (post.var >= 0).all()),
+        "peak memory < 8 GB": peak < 8e9,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"200k story checks failed: {failed}")
+    return {"counts": counts}
+
+
+def _se_draw(n: int, seed: int):
+    """Example 08's data (``synth_se``: sorted x ~ U(0, 1), an SE draw
+    with ℓ = 0.2, plus 0.1 noise) at any n: the draw is made on a
+    1,024-point grid (``eigh``, as a Cholesky of the ℓ = 0.2 Gram fails)
+    and linearly interpolated, which moves it by ~3e-6. Returns float32
+    CUDA x [n, 1], y [n] and the noise-free f [n]."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 1.0, (n, 1)), axis=0)
+    g = np.linspace(0.0, 1.0, 1024)
+    w, V = np.linalg.eigh(np.exp(-0.5 * ((g[:, None] - g[None, :]) / 0.2) ** 2))
+    f = np.interp(x[:, 0], g, V @ (np.sqrt(np.clip(w, 0.0, None))
+                                    * rng.standard_normal(1024)))
+    y = f + 0.1 * rng.standard_normal(n)
+    return tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
+                 for a in (x, y, f))
+
+
+def phase_nystroem() -> dict:
+    """Example 08 at N = 100,000: ``GaussianProcess(SE~s).fit(method=
+    "adam", steps=20, optimize_noise=True, approximation="nystroem",
+    n_inducing=2048, optimize_inducing=True)``, then the projected-process
+    ``posterior`` at 1,000 points (K5 for K_nm, K_mm and K_tm), against
+    ``nystroem_posterior`` in float64 on the plain route at the fitted
+    parameters, inducing set and jitter level (μ within 1e-3·max|μ|, var
+    within DENSE_VAR_RTOL·max|var|); each Gram's shape held against the
+    plain version; then all of it for Matérn-5/2~s (K6), and for SE~s at
+    the default ratio m = 10,000 with a 3-step fit."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.fit.fit import default_inducing
+    from gaussianprocessfundamentals_tpu_torch.linalg.nystroem import (
+        nystroem_jitter,
+        nystroem_posterior,
+    )
+    from gaussianprocessfundamentals_tpu_torch.ops import cuda_dense_gram as dg
+
+    x, y, f = _se_draw(N_NY, seed=26)
+    xt = torch.linspace(0.01, 0.99, T_MAIN, device="cuda")[:, None]
+    out = {"counts": {}, "worst": {"K5": (0.0, 0.0), "K6": (0.0, 0.0)}}
+    se = ("se", "K5", gpt.SquaredExponentialKernel, dg.se_gram,
+          dg.plain_se_gram, {})
+    mat52 = ("mat52", "K6", gpt.Matern52Kernel, dg.matern_gram,
+             dg.plain_matern_gram, {"nu": "52"})
+    for (kind, name, leaf, fn, plain, extra), m, steps in (
+            (se, M_NY, NY_STEPS), (mat52, M_NY, NY_STEPS),
+            (se, M_NY_RATIO, NY_STEPS_RATIO)):
+        if m != M_NY:
+            kind = f"{kind}_m{m}"
+        gp = gpt.GaussianProcess(leaf(scaled=True), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = gp.fit(x, y, method="adam", steps=steps, optimize_noise=True,
+                     approximation="nystroem", n_inducing=m,
+                     optimize_inducing=True)
+        torch.cuda.synchronize()
+        fit_wall = time.perf_counter() - t0
+        fit_counts = _launch_counts()
+        fit_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        post = gp.posterior(xt)
+        torch.cuda.synchronize()
+        post_wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        post_peak = torch.cuda.max_memory_allocated()
+        z = gp.inducing
+        with torch.no_grad():
+            jit = float(nystroem_jitter(dg.dense_gram_for(gp.kernel, z, z),
+                                        gp.config.jitter))
+        k64 = _f64(gp.kernel)
+        args = (k64, x.double(), y.double(), z.double(), xt.double(),
+                gp.noise.double())
+        ref_mu, ref_var = nystroem_posterior(*args, jit)
+        cfg_mu, cfg_var = nystroem_posterior(*args, gp.config.jitter)
+        mu_err = float((post.mean.double() - ref_mu).abs().max())
+        mu_lim = 1e-3 * float(ref_mu.abs().max())
+        var_err = float((post.var.double() - ref_var).abs().max())
+        var_max = float(ref_var.abs().max())
+        var_lim = DENSE_VAR_RTOL * var_max
+        cfg_mu_rel = float((post.mean.double() - cfg_mu).abs().max()
+                           / cfg_mu.abs().max())
+        cfg_var_rel = float((post.var.double() - cfg_var).abs().max()
+                            / cfg_var.abs().max())
+        rmse = float(torch.sqrt(torch.mean(
+            (post.mean - torch.tensor(np.interp(
+                xt[:, 0].cpu().numpy(), x[:, 0].cpu().numpy(),
+                f.cpu().numpy()), dtype=torch.float32, device="cuda")) ** 2)))
+        hist = [float(v) for v in res.history]
+        params = {k: round(float(v), 6) for k, v in res.kernel_params.items()}
+        moved = float((z - default_inducing(x, m)).abs().max())
+        log(f"[nystroem] {kind} N={N_NY} m={m} fit(method='adam', "
+            f"{steps} steps, optimize_inducing): wall {fit_wall:.3f} s, "
+            f"{fit_wall / steps:.3f} s/step (first step included), "
+            f"launches {fit_counts}, peak mem {fit_peak / 1e9:.3f} GB; NLL "
+            f"history {[float(f'{v:.1f}') for v in hist]}; fitted {params}, "
+            f"noise {float(res.noise):.4e}; inducing inputs moved by up to "
+            f"{moved:.4f}")
+        log(f"[nystroem] {kind} projected-process posterior at {T_MAIN} points: "
+            f"wall {post_wall:.4f} s, launches {counts}, peak mem "
+            f"{post_peak / 1e9:.3f} GB, mean RMSE vs the noise-free draw "
+            f"{rmse:.5f}; vs float64 nystroem_posterior at the jitter level "
+            f"the float32 K_mm needed ({jit:.3e}): mu max|diff| {mu_err:.3e} "
+            f"(limit {mu_lim:.3e}), var max|diff| {var_err:.3e} (limit "
+            f"{var_lim:.3e} = {DENSE_VAR_RTOL:g} x max|var| {var_max:.3e}); "
+            f"at the config jitter ({gp.config.jitter:g}, a different "
+            f"regularisation): mu {cfg_mu_rel:.2e}, var {cfg_var_rel:.2e} "
+            f"of max")
+        ls = float(gp.kernel.lengthscale)
+        var_k = float(gp.kernel.variance)
+        for a, b, tag in ((x, z, "K_nm"), (z, z, "K_mm"), (xt, z, "K_tm")):
+            out["worst"][name] = _worse(out["worst"][name], _k56_check(
+                fn, plain, a, b, ls, var_k, 0.0, f"nystroem {kind} {tag}",
+                extra))
+        checks = {
+            "the fit (kernel.gram under autograd) launches no kernel":
+            sum(fit_counts.values()) == 0,
+            "fit NLL history finite": all(np.isfinite(hist)),
+            "fit: last NLL below first": hist[-1] < hist[0],
+            "inducing set finite": bool(torch.isfinite(z).all()),
+            f"{name} launched once per Gram (3)": counts[name] == 3,
+            "no other kernel": sum(counts.values()) == 3,
+            "mu within 1e-3 of float64": mu_err <= mu_lim,
+            f"var within {DENSE_VAR_RTOL:g} x max|var| of float64":
+            var_err <= var_lim,
+            "finite, var >= 0": bool(torch.isfinite(post.mean).all()
+                                     and torch.isfinite(post.var).all()
+                                     and (post.var >= 0).all()),
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise RuntimeError(f"Nystroem checks failed ({kind}): {failed}")
+        out["counts"][kind] = counts
+        del gp, post, res, k64, args, ref_mu, ref_var, cfg_mu, cfg_var
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_skc_ski() -> None:
+    """The SKC bounds and the Nyström log likelihood at n = 4,096 (value
+    and gradient with respect to ℓ, σ², the noise and the inducing inputs):
+    skc_lower ≤ the float64 dense log likelihood ≤ skc_upper
+    (``tests/test_block_cholesky.py:78-102``), gradients finite; then SKI's
+    ``ski_mll`` and ``ski_mll_toeplitz`` at N = 20,000 on m = 2,000 grid
+    points, value and gradient finite, with their CG iteration counts (the
+    absolute test max|r| < 1e-6, capped at 4n)."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.fit.fit import default_inducing
+    from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
+    from gaussianprocessfundamentals_tpu_torch.linalg.nystroem import (
+        nystroem_mll,
+    )
+    from gaussianprocessfundamentals_tpu_torch.linalg.ski import (
+        ski_mll,
+        ski_mll_toeplitz,
+    )
+    from gaussianprocessfundamentals_tpu_torch.objectives.skc import (
+        skc_lower_bound,
+        skc_upper_bound,
+    )
+
+    def kernel(dtype=torch.float32):
+        return gpt.SquaredExponentialKernel(scaled=True).set_params({
+            "lengthscale": torch.tensor(0.2, dtype=dtype),
+            "variance": torch.tensor(1.0, dtype=dtype)}).cuda()
+
+    x, y, _ = _se_draw(N_SKC, seed=27)
+    k64 = kernel(torch.float64)
+    exact = float(chol.mll(k64.gram(x.double(), x.double()), y.double(),
+                           NOISE, 1e-8))
+    z0 = default_inducing(x, M_SKC)
+    vals, grads = {}, {}
+    for label, fn in (("skc_lower", skc_lower_bound),
+                      ("skc_upper", skc_upper_bound),
+                      ("nystroem", nystroem_mll)):
+        k = kernel()
+        z = z0.clone().requires_grad_(True)
+        noise = torch.tensor(NOISE, device="cuda", requires_grad=True)
+        with k.differentiable() as p:
+            v = fn(k, x, y, z, noise, 1e-8)
+            g = torch.autograd.grad(v, [p["lengthscale"], p["variance"],
+                                        noise, z])
+        vals[label] = float(v.detach())
+        grads[label] = [float(t.abs().max()) for t in g]
+    finite = all(np.isfinite(vals[k]) and np.isfinite(grads[k]).all()
+                 for k in vals)
+    ok = vals["skc_lower"] <= exact <= vals["skc_upper"] and finite
+    log(f"[skc] n={N_SKC} m={M_SKC} SE~s l=0.2 noise={NOISE} float32: "
+        f"skc_lower {vals['skc_lower']:.3f} <= float64 dense mll {exact:.3f} "
+        f"<= skc_upper {vals['skc_upper']:.3f}; nystroem mll "
+        f"{vals['nystroem']:.3f}; max|gradient| (l, var, noise, z) {grads}; "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("SKC sandwich or gradients failed")
+
+    x, y, _ = _se_draw(N_SKI, seed=28)
+    grid = default_inducing(x, M_SKI, "ski")
+    for fn in (ski_mll, ski_mll_toeplitz):
+        k = kernel()
+        noise = torch.tensor(NOISE, device="cuda", requires_grad=True)
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with k.differentiable() as p:
+            v = fn(k, x, y, grid, noise, 1e-8, stats=stats)
+            g = torch.autograd.grad(v, [p["lengthscale"], p["variance"],
+                                        noise])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gv = [float(t) for t in g]
+        ok = bool(torch.isfinite(v).all()) and np.isfinite(gv).all()
+        log(f"[ski] {fn.__name__} N={N_SKI} m={M_SKI} float32: value "
+            f"{float(v.detach()):.3f}, gradient (l, var, noise) "
+            f"{[float(f'{t:.4e}') for t in gv]}, CG iterations (forward, "
+            f"backward) {stats['iters']} (cap {4 * N_SKI}), wall {wall:.3f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{fn.__name__}: value or gradient not finite")
+
+
 def _kernel_entry(name, source, replaces, by_path, worst, times) -> dict:
     ms, plain_ms, bound_ms, bound_by = times
     return {"name": name, "route": "cuda",
@@ -2089,11 +2490,16 @@ def main() -> None:
     part = phase_partitioned(seg.pop("segments"))
     k56_time = phase_k56_time()
     cp = phase_changepoint()
+    var_gate = phase_var_gate()
+    story = phase_story_200k()
+    ny = phase_nystroem()
+    phase_skc_ski()
     k1_worst = _worse(_worse(k1_worst, main_res["worst"]), fit_time["k1_worst"])
     k2_worst = _worse(k2_worst, fit_time["worst"])
     k3_worst = _worse(k3_worst, expr_time["k3_worst"])
     k4_worst = _worse(k4_worst, expr_time["k4_worst"])
-    k56_worst = {k: _worse(v, k56_time["worst"][k]) for k, v in k56_worst.items()}
+    k56_worst = {k: _worse(_worse(v, k56_time["worst"][k]), ny["worst"][k])
+                 for k, v in k56_worst.items()}
     dense_counts = {k: sum(c[k] for c in dense["counts"].values())
                     for k in _wrappers()}
     paths = {"posterior": main_res["counts"], "fit": fit_res["counts"],
@@ -2101,7 +2507,11 @@ def main() -> None:
              "composite_posterior": expr_serve["counts"],
              "dense_posterior": dense_counts,
              "segmented": seg["counts"], "partitioned": part["counts"],
-             "changepoint_posterior": cp["counts"]}
+             "changepoint_posterior": cp["counts"],
+             "var_gate_50k": var_gate["counts"], "story_200k": story["counts"],
+             "nystroem_posterior": ny["counts"]["se"],
+             "nystroem_posterior_mat52": ny["counts"]["mat52"],
+             "nystroem_posterior_m10000": ny["counts"][f"se_m{M_NY_RATIO}"]}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in _wrappers()}
     k1_widths = {1: main_res["times"][1], R_CG: fit_time["k1"],
                  256: main_res["times"][256]}

@@ -8,8 +8,13 @@ fitted and served at any n, sampled, and segmented (``BlockwiseGP``,
 ``fit`` runs L-BFGS on the dense Cholesky NLL (or its k-fold mean); from
 there on Adam over the matrix-free iterative NLL (mBCG solves, SLQ
 log-determinant, a low-rank gradient cotangent). Posteriors are dense below
-20k rows and matrix-free chunked mBCG from there on. On the GPU the work
-runs in hand-written CUDA kernels: the dense route's Grams in
+20k rows and matrix-free chunked mBCG from there on. ``fit`` also takes
+O(nm²) approximation objectives (``approximation=`` Nyström, the SKC
+bounds or SKI, with trainable inducing inputs; the facade then serves the
+projected-process posterior), SciPy's BFGS and CG (``method="scipy-bfgs"``,
+``"scipy-cg"``); ``fit_batch_independent`` fits a batch of independent
+problems as one program. On the GPU the work runs in hand-written CUDA
+kernels: the dense route's Grams (and the Nyström posterior's) in
 ``csrc/dense_gram.cu`` (SE and Matérn leaves, K + (σ² + jitter)·I in one
 pass); above 40k rows, where K is never formed, Gram·V in
 ``csrc/gram_matvec.cu`` and the gradient's low-rank contraction in
@@ -40,6 +45,7 @@ from gaussianprocessfundamentals_tpu_torch.config import (
 from gaussianprocessfundamentals_tpu_torch.fit.fit import (
     FitResult,
     fit,
+    fit_batch_independent,
     make_kfold_nll,
     make_nll,
 )

@@ -2,11 +2,11 @@
 
 Counterpart of ``gaussianprocessfundamentals_tpu/config.py:39``
 (``GPConfig``), with the fields the posterior and fitting paths read: the
-diagonal jitter, the change-point gate, the float32 matmul precision, the
-jitter escalations of ``fit`` and the dense working-set budget that routes
-large fits to the matrix-free iterative route. ``ChangePointGate`` is the
-JAX package's enum (``config.py:25-35``), with the same value strings, so
-kernel and mean ASTs interchange.
+diagonal jitter, the change-point gate, the Nyström inducing ratio, the
+float32 matmul precision, the jitter escalations of ``fit`` and the dense
+working-set budget that routes large fits to the matrix-free iterative
+route. ``ChangePointGate`` is the JAX package's enum (``config.py:25-35``),
+with the same value strings, so kernel and mean ASTs interchange.
 """
 from __future__ import annotations
 
@@ -31,6 +31,9 @@ class GPConfig:
     jitter: float = 1e-8
     # gate of ChangePoint and MeanChangePoint when none is given
     cp_gate: ChangePointGate = ChangePointGate.INDICATOR
+    # inducing inputs per training row of fit(approximation=...) when
+    # n_inducing is not given: m = max(20, ⌊ratio·n⌋) (reference 0.1)
+    nystroem_ratio: float = 0.1
     # float32 matmul precision the CUDA path requires: "highest" is full
     # float32. One TF32 pass keeps about three decimal digits, which breaks
     # CG residuals and Cholesky-grade posteriors. (The Gram·V kernels K1 and

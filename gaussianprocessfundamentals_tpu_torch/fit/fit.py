@@ -1,15 +1,18 @@
-"""Hyperparameter fitting: Adam and L-BFGS over the NLL, with fit() routing.
+"""Hyperparameter fitting: Adam, L-BFGS and SciPy over the NLL or an
+approximation objective, with fit() routing.
 
 Counterpart of ``gaussianprocessfundamentals_tpu/fit/fit.py``: ``FitResult``
 (``:36``), ``make_nll`` (``:56``, with its ``gram_fn``), ``make_kfold_nll``
-(``:94``), ``bounds_projection`` (``:240``),
-``init_uparams`` (``:267``), ``adam_run`` (``:292``), ``lbfgs_run``
-(``:315``), ``_fit_iterative_routed`` (``:471``) and ``fit`` (``:556``) with
-its routing: the dense Cholesky NLL below ``_AUTO_ITERATIVE_N`` rows, the
-matrix-free iterative NLL (:func:`..models.iterative.fit_iterative`) from
-there on or whenever the dense working set would not fit
-``config.dense_hbm_budget``, and ×10 jitter escalation when the dense NLL
-comes out non-finite.
+(``:94``), ``APPROXIMATIONS``, ``make_approx_nll`` and ``default_inducing``
+(``:152-237``), ``bounds_projection`` (``:240``), ``init_uparams``
+(``:267``), ``adam_run`` (``:292``), ``lbfgs_run`` (``:315``),
+``fit_batch_independent`` (``:367``), ``scipy_run`` (``:435``),
+``_fit_iterative_routed`` (``:471``) and ``fit`` (``:556``) with its
+routing: the dense Cholesky NLL (or an O(nm²) approximation objective)
+below ``_AUTO_ITERATIVE_N`` rows, the matrix-free iterative NLL
+(:func:`..models.iterative.fit_iterative`) from there on or whenever the
+dense working set would not fit ``config.dense_hbm_budget``, and ×10
+jitter escalation when the NLL comes out non-finite.
 
 The optimisers work on a tree of unconstrained leaf tensors
 (``{"kernel": …, "mean": …, "log_noise": …}``) and install the constrained
@@ -45,11 +48,12 @@ from gaussianprocessfundamentals_tpu_torch.means.functions import (
 from gaussianprocessfundamentals_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
+    tree_unflatten,
 )
 
 _AUTO_ITERATIVE_N = 8000  # fit(method="auto") dense→iterative crossover
 
-_NOT_PORTED = "is not ported to the PyTorch package yet (ROADMAP.md M7)"
+APPROXIMATIONS = ("nystroem", "skc_lower", "skc_upper", "ski")
 
 
 @dataclasses.dataclass
@@ -64,6 +68,8 @@ class FitResult:
     nll_post: float
     history: Optional[torch.Tensor] = None
     restart_losses: Optional[torch.Tensor] = None
+    # the fitted inducing inputs [m, d] of an approximation objective
+    inducing: Optional[torch.Tensor] = None
     # iterative route: {"frozen_frac": share of steps the guard skipped}
     diagnostics: Optional[dict] = None
 
@@ -138,6 +144,66 @@ def make_kfold_nll(kernel, mean: MeanFunction, x, y, k: int, perm,
         return masked_nll(gram(x, x), resid, masks, noise, config.jitter).mean()
 
     return nll_fn
+
+
+def make_approx_nll(kernel, mean: MeanFunction, x, y, approximation: str,
+                    z, config: GPConfig = DEFAULT_CONFIG,
+                    optimize_noise: bool = False, fixed_noise: float = 0.0,
+                    optimize_inducing: bool = False,
+                    skc_iters: int = 10) -> Callable:
+    """``nll(u) -> scalar`` with the covariance replaced by an O(nm²)
+    approximation (one of :data:`APPROXIMATIONS`) with inducing inputs z
+    [m, d]; with ``optimize_inducing`` the inducing inputs are
+    ``u["inducing"]``, optimised with the hyperparameters (continuous
+    locations, where the reference trains inducing indices). SKI keeps its
+    interpolation grid fixed."""
+    from gaussianprocessfundamentals_tpu_torch.linalg.nystroem import (
+        nystroem_nll,
+    )
+    from gaussianprocessfundamentals_tpu_torch.linalg.ski import ski_mll
+    from gaussianprocessfundamentals_tpu_torch.objectives.skc import (
+        skc_lower_bound,
+        skc_upper_bound,
+    )
+
+    if approximation not in APPROXIMATIONS:
+        raise ValueError(f"unknown approximation {approximation!r}; one of "
+                         f"{APPROXIMATIONS}")
+    if optimize_inducing and approximation == "ski":
+        raise ValueError("SKI uses a fixed interpolation grid; "
+                         "optimize_inducing is not supported")
+    z = torch.as_tensor(z, dtype=x.dtype, device=x.device)
+
+    def nll_fn(u):
+        noise = _install(kernel, mean, u, optimize_noise, fixed_noise, x)
+        resid = y - mean.mean(x)
+        zz = u["inducing"] if optimize_inducing else z
+        if approximation == "nystroem":
+            return nystroem_nll(kernel, x, resid, zz, noise, config.jitter)
+        if approximation == "skc_lower":
+            return -skc_lower_bound(kernel, x, resid, zz, noise,
+                                    config.jitter)
+        if approximation == "skc_upper":
+            return -skc_upper_bound(kernel, x, resid, zz, noise,
+                                    config.jitter, num_iters=skc_iters)
+        return -ski_mll(kernel, x, resid, zz, noise, config.jitter)
+
+    return nll_fn
+
+
+def default_inducing(x, m: int, approximation: str = "nystroem"):
+    """Initial inducing inputs: rows of x at the rounded, deduplicated
+    ``linspace(0, n−1, m)`` (the reference's linspace indices); for SKI at
+    d = 1 an equispaced grid over x's range, which its ``searchsorted``
+    interpolation needs sorted."""
+    n = x.shape[0]
+    m = min(m, n)
+    if approximation == "ski" and x.shape[-1] == 1:
+        lo, hi = float(x[:, 0].min()), float(x[:, 0].max())
+        return torch.linspace(lo, hi, m, dtype=x.dtype,
+                              device=x.device)[:, None]
+    idx = np.unique(np.linspace(0, n - 1, m).round().astype(int))
+    return x[torch.as_tensor(idx, device=x.device)]
 
 
 def bounds_projection(kernel, xrange, n: int) -> Callable:
@@ -252,6 +318,78 @@ def lbfgs_run(nll_fn, u0, max_iters: int = 200, tol: float = 1e-8,
     return tree_map(torch.Tensor.detach, u), None
 
 
+def scipy_run(nll_fn, u0, method: str = "BFGS", max_iters: int = 500):
+    """SciPy's ``minimize`` (``method`` "BFGS", "CG", ...) over the
+    unconstrained tree flattened to one float64 vector; the value and
+    gradient come from ``nll_fn`` under autograd, in the tree's dtype and
+    device. A non-finite value is reported as (1e30, 0), so the line search
+    backs off. Returns (final tree, None)."""
+    import scipy.optimize
+
+    leaves = tree_leaves(u0)
+    like = leaves[0]
+    sizes = [t.numel() for t in leaves]
+
+    def unravel(flat):
+        parts = torch.split(flat, sizes)
+        return tree_unflatten(u0, [p.reshape(t.shape)
+                                   for p, t in zip(parts, leaves)])
+
+    def fun(uf):
+        flat = torch.as_tensor(uf, dtype=like.dtype,
+                               device=like.device).requires_grad_(True)
+        v = nll_fn(unravel(flat))
+        (g,) = torch.autograd.grad(v, flat, allow_unused=True)
+        g = (np.zeros(flat.shape[0]) if g is None
+             else g.detach().cpu().numpy().astype(np.float64))
+        v = float(v.detach())
+        if not np.isfinite(v):
+            return 1e30, np.zeros_like(g)
+        return v, g
+
+    flat0 = torch.cat([t.detach().reshape(-1) for t in leaves])
+    res = scipy.optimize.minimize(
+        fun, flat0.cpu().numpy().astype(np.float64), jac=True, method=method,
+        options={"maxiter": max_iters},
+    )
+    return unravel(torch.as_tensor(res.x, dtype=like.dtype,
+                                   device=like.device)), None
+
+
+def fit_batch_independent(kernel, xb, yb, mean: Optional[MeanFunction] = None,
+                          config: GPConfig = DEFAULT_CONFIG, steps: int = 300,
+                          lr: float = 0.05, optimize_noise: bool = True,
+                          noise: float = 1e-4, generator=None):
+    """Fit b independent GP problems xb [b, n, d], yb [b, n], each with its
+    own hyperparameters, as one batched Adam program
+    (:func:`..models.segmented.adam_stacked`: stacked Grams, one batched
+    Cholesky, one Adam over the stacked parameters). Each instance starts
+    from the defaults for its own x-range, or from a random point inside
+    the bounds drawn from ``generator``. Returns (kernel params stacked on
+    a leading axis b, noises [b], the NLLs [b] of the last step, before its
+    update)."""
+    from gaussianprocessfundamentals_tpu_torch.models.segmented import (
+        adam_stacked,
+    )
+
+    b, n, d = xb.shape
+    mean = mean if mean is not None else ZeroMean(dim=d)
+    inits = []
+    for i in range(b):
+        xr = torch.stack([xb[i].min(dim=0).values, xb[i].max(dim=0).values],
+                         dim=-1).cpu().numpy()
+        inits.append(init_uparams(kernel, mean, xr, n, generator, xb.dtype,
+                                  optimize_noise, max(noise, 1e-6),
+                                  xb.device))
+    fixed_noise = torch.full((b,), noise, dtype=xb.dtype, device=xb.device)
+    u, final = adam_stacked(kernel, xb, yb, torch.ones_like(yb), inits, steps,
+                            lr, optimize_noise, fixed_noise, config.jitter,
+                            mean=mean)
+    kp = constrain(kernel.positivity(), u["kernel"])
+    noises = torch.exp(u["log_noise"]) if optimize_noise else fixed_noise
+    return kp, noises, final
+
+
 def iterative_fit_result(out, with_mean: bool) -> FitResult:
     """The FitResult of :func:`..models.iterative.fit_iterative`'s return
     with diagnostics; nll_pre and nll_post are the stochastic estimates of
@@ -302,39 +440,43 @@ def fit(
 ) -> FitResult:
     """Fit kernel and mean hyperparameters by minimising the NLL.
 
-    ``method``: "lbfgs" or "adam" on the dense NLL, or "auto": the dense
-    L-BFGS route below ``_AUTO_ITERATIVE_N`` rows and the matrix-free
-    iterative Adam route (``steps``, ``lr``, ``iterative_kwargs``) from
-    there on. Either dense method switches to the iterative route, with a
-    warning, when the dense working set ~3·n²·itemsize exceeds
-    ``config.dense_hbm_budget``. ``restarts > 0`` adds that many random
-    starts inside the bounds, drawn from ``generator`` (required on the
-    dense route), and keeps the best final NLL. A non-finite dense result
-    is retried with the jitter ×10, up to ``config.max_jitter_retries``
-    times. ``enforce_bounds`` projects the kernel hyperparameters into
-    ``kernel.bounds(xrange, n)`` after every step. ``gram_fn(kernel, x1,
-    x2)`` replaces ``kernel.gram`` in the objective (:func:`make_nll`);
-    ``kfold > 1`` fits the mean k-fold NLL (:func:`make_kfold_nll`), the
-    split drawn from ``generator`` (required). Both keep the fit on the
-    dense route.
+    ``method``: "lbfgs", "adam", "scipy-bfgs" or "scipy-cg"
+    (:func:`scipy_run`) on the dense NLL, or "auto": the dense L-BFGS route
+    below ``_AUTO_ITERATIVE_N`` rows and the matrix-free iterative Adam
+    route (``steps``, ``lr``, ``iterative_kwargs``) from there on. "lbfgs"
+    and "adam" switch to the iterative route, with a warning, when the
+    dense working set ~3·n²·itemsize exceeds ``config.dense_hbm_budget``.
+    ``restarts > 0`` adds that many random starts inside the bounds, drawn
+    from ``generator`` (required on the dense route), and keeps the best
+    final NLL. A non-finite result is retried with the jitter ×10, up to
+    ``config.max_jitter_retries`` times. ``enforce_bounds`` projects the
+    kernel hyperparameters into ``kernel.bounds(xrange, n)`` after every
+    step (SciPy's optimisers are unconstrained: once, at readout).
+    ``gram_fn(kernel, x1, x2)`` replaces ``kernel.gram`` in the objective
+    (:func:`make_nll`); ``kfold > 1`` fits the mean k-fold NLL
+    (:func:`make_kfold_nll`), the split drawn from ``generator``
+    (required).
 
-    Not ported yet (``NotImplementedError``): ``approximation``,
-    ``n_inducing``, ``optimize_inducing``, the scipy methods and batched
+    ``approximation`` (one of :data:`APPROXIMATIONS`) swaps the exact NLL
+    for that O(nm²) objective (:func:`make_approx_nll`) with
+    ``n_inducing`` inducing inputs (default max(20,
+    ⌊config.nystroem_ratio·n⌋), placed by :func:`default_inducing`);
+    ``optimize_inducing`` optimises their locations too (it does nothing
+    without an approximation, as in the JAX package). An approximation
+    needs no [n, n] working set, so the budget does not apply to it.
+    Approximations, the k-fold objective and a custom ``gram_fn`` keep the
+    fit off the iterative route.
+
+    Not ported yet (``NotImplementedError``): batched (instance-stacked)
     inputs.
     """
-    unported = [
-        name for name, given in (
-            ("approximation", approximation is not None),
-            ("n_inducing", n_inducing is not None),
-            ("optimize_inducing", optimize_inducing),
-            (f"method={method!r}", method.startswith("scipy")),
-            ("batched (instance-stacked) input", x.ndim != 2),
-        ) if given
-    ]
-    if unported:
-        raise NotImplementedError(f"fit(): {', '.join(unported)} {_NOT_PORTED}")
-    if method not in ("auto", "lbfgs", "adam"):
-        raise ValueError(f"fit(method={method!r}): one of 'auto', 'lbfgs', 'adam'")
+    if x.ndim != 2:
+        raise NotImplementedError(
+            "fit(): batched (instance-stacked) input is not ported to the "
+            "PyTorch package yet (ROADMAP.md M5)")
+    methods = ("auto", "lbfgs", "adam", "scipy-bfgs", "scipy-cg")
+    if method not in methods:
+        raise ValueError(f"fit(method={method!r}): one of {methods}")
     mean = mean if mean is not None else ZeroMean(dim=x.shape[-1])
     if xrange is None:
         xrange = torch.stack([x.min(dim=0).values, x.max(dim=0).values],
@@ -342,9 +484,11 @@ def fit(
     n = x.shape[-2]
     dtype = x.dtype
     # the iterative route would have to clamp a fixed noise this small,
-    # silently solving another model; it has no k-fold objective and no
-    # Gram function but its own
+    # silently solving another model; it has no k-fold or approximation
+    # objective and no Gram function but its own
     blockers = [name for name, given in (
+        ("an approximation objective", approximation is not None),
+        ("optimize_inducing", optimize_inducing),
         ("a fixed noise < 1e-6", not optimize_noise and float(noise) < 1e-6),
         ("the k-fold objective", kfold > 1),
         ("a custom gram_fn", gram_fn is not None)) if given]
@@ -353,7 +497,8 @@ def fit(
         raise ValueError("fit(kfold>1) needs a generator for the fold split")
     # the k-fold objective holds one more [n, n] per fold
     dense_bytes = (3 + (kfold if kfold > 1 else 0)) * n * n * x.element_size()
-    dense_feasible = dense_bytes <= config.dense_hbm_budget
+    dense_feasible = (approximation is not None
+                      or dense_bytes <= config.dense_hbm_budget)
     route_iterative = False
     if method == "auto":
         route_iterative = iterative_ok and (
@@ -361,15 +506,16 @@ def fit(
         if not route_iterative:
             method = "lbfgs"
     if not dense_feasible and not route_iterative:
-        if not iterative_ok:
+        if not iterative_ok or method not in ("lbfgs", "adam"):
             raise ValueError(
                 f"fit(method={method!r}) at n={n} needs a dense working set "
                 f"of ~{dense_bytes / 1e9:.1f} GB (> budget "
                 f"{config.dense_hbm_budget / 1e9:.1f} GB, "
-                f"config.dense_hbm_budget), and {', '.join(blockers)} keeps "
-                "it off the matrix-free iterative route. Reduce n, optimise "
-                "the noise, or raise config.dense_hbm_budget if the memory "
-                "truly exists."
+                f"config.dense_hbm_budget), and "
+                f"{', '.join(blockers or [f'method={method!r}'])} keeps it "
+                "off the matrix-free iterative route. Reduce n, optimise the "
+                "noise, use an approximation objective, or raise "
+                "config.dense_hbm_budget if the memory truly exists."
             )
         warnings.warn(
             f"fit(method={method!r}) at n={n} needs a dense working set of "
@@ -388,19 +534,32 @@ def fit(
         )
     if restarts > 0 and generator is None:
         raise ValueError("fit(restarts>0) on the dense route needs a generator")
+    z0 = None
+    if approximation is not None:
+        if kfold > 1:
+            raise ValueError("approximation objectives do not support kfold")
+        m = n_inducing or max(20, int(config.nystroem_ratio * n))
+        z0 = default_inducing(x, m, approximation)
     project = bounds_projection(kernel, xrange, n) if enforce_bounds else None
     start = dict(dtype=dtype, optimize_noise=optimize_noise,
                  init_noise=max(noise, 1e-6), device=x.device)
     inits = [init_uparams(kernel, mean, xrange, n, None, **start)]
     inits += [init_uparams(kernel, mean, xrange, n, generator, **start)
               for _ in range(restarts)]
+    if optimize_inducing and z0 is not None:
+        for u0 in inits:
+            u0["inducing"] = z0
 
     perm = (torch.randperm(n, generator=generator,
                            device=generator.device).cpu()
             if kfold > 1 else None)
 
     def attempt(cfg: GPConfig) -> FitResult:
-        if kfold > 1:
+        if approximation is not None:
+            nll_fn = make_approx_nll(kernel, mean, x, y, approximation, z0,
+                                     cfg, optimize_noise, noise,
+                                     optimize_inducing)
+        elif kfold > 1:
             nll_fn = make_kfold_nll(kernel, mean, x, y, kfold, perm, cfg,
                                     optimize_noise, noise, gram_fn)
         else:
@@ -410,7 +569,11 @@ def fit(
         def run(u0):
             if method == "adam":
                 return adam_run(nll_fn, u0, steps, lr, project)
-            return lbfgs_run(nll_fn, u0, project_fn=project)
+            if method == "lbfgs":
+                return lbfgs_run(nll_fn, u0, project_fn=project)
+            u, hist = scipy_run(nll_fn, u0, "BFGS" if method == "scipy-bfgs"
+                                else "CG")
+            return (u if project is None else project(u)), hist
 
         runs = [run(u0) for u0 in inits]
         with torch.no_grad():
@@ -428,6 +591,7 @@ def fit(
             constrain(mean.positivity(), u["mean"]), fitted_noise,
             nll_pre, nll_post, hist,
             losses if restarts > 0 else None,
+            inducing=u.get("inducing", z0),
         )
 
     cfg = config

@@ -4,8 +4,10 @@ Counterpart of ``gaussianprocessfundamentals_tpu/models/exact.py``:
 ``Posterior`` (``:33``), the ``posterior`` router (``:44``) with the same
 dense→iterative threshold, ``_posterior_dense`` (``:128``) and the
 ``GaussianProcess`` facade (``:192``) with ``fit`` (``:218``, the routed
-:func:`..fit.fit.fit` or ``method="iterative"``), ``log_marginal_likelihood``
-(``:314``) and prior and posterior sampling (``:151-188``, ``:300-312``).
+:func:`..fit.fit.fit` or ``method="iterative"``), the projected-process
+posterior after an approximation fit (``:273-292``),
+``log_marginal_likelihood`` (``:314``) and prior and posterior sampling
+(``:151-188``, ``:300-312``).
 
 Every Gram the dense route builds goes through
 :func:`..ops.cuda_dense_gram.dense_gram_for`: on a card the SE and Matérn
@@ -27,6 +29,9 @@ from gaussianprocessfundamentals_tpu_torch.fit.fit import (
 )
 from gaussianprocessfundamentals_tpu_torch.fit.fit import fit as _fit
 from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
+from gaussianprocessfundamentals_tpu_torch.linalg.nystroem import (
+    nystroem_posterior,
+)
 from gaussianprocessfundamentals_tpu_torch.means.functions import (
     MeanFunction,
     ZeroMean,
@@ -220,6 +225,11 @@ class GaussianProcess:
     :func:`..utils.checkpoint.params_from_numpy`); unset ones get the
     kernel's defaults for the training range, and an unset ``noise``
     defaults to the jitter.
+
+    After a fit with an approximation objective, ``approximation`` names
+    it and ``inducing`` holds the fitted inducing inputs; ``posterior``
+    (marginal variances) then serves the O(nm²) projected-process
+    predictive through them.
     """
 
     def __init__(self, kernel, mean: Optional[MeanFunction] = None,
@@ -232,6 +242,8 @@ class GaussianProcess:
         self.noise = noise
         self.x_train = None
         self.y_train = None
+        self.inducing = None
+        self.approximation = None
 
     def set_data(self, x_train, y_train) -> "GaussianProcess":
         self.x_train = torch.as_tensor(x_train, device=self.device)
@@ -245,7 +257,8 @@ class GaussianProcess:
         :func:`..models.iterative.fit_iterative` with ``kwargs`` (its
         ``generator`` draws the probes); any other call is
         :func:`..fit.fit.fit` with ``kwargs``, ``method="auto"`` routing
-        between the dense and the iterative NLL."""
+        between the dense and the iterative NLL, and ``approximation=…``
+        setting :attr:`approximation` and :attr:`inducing`."""
         if x_train is not None:
             self.set_data(x_train, y_train)
         if self.x_train is None:
@@ -265,6 +278,8 @@ class GaussianProcess:
         else:
             res = _fit(self.kernel, x, y, mean=self.mean, config=self.config,
                        **kwargs)
+        self.approximation = kwargs.get("approximation")
+        self.inducing = res.inducing
         self.noise = res.noise
         return res
 
@@ -297,9 +312,23 @@ class GaussianProcess:
             self.noise = self.config.jitter
 
     def posterior(self, x_test, full_cov: bool = False, method: str = "auto"):
+        """Posterior moments at x_test (:func:`posterior`); after an
+        approximation fit the projected-process predictive through the
+        fitted inducing inputs (:func:`..linalg.nystroem.nystroem_posterior`
+        on the mean's residual, the mean added back), unless ``full_cov``
+        asks for the exact dense covariance."""
         self._ensure_params()
         if self.device.type == "cuda":
             _check_matmul_precision(self.config)
+        if self.approximation is not None and not full_cov:
+            with torch.no_grad():
+                resid = self.y_train - self.mean.mean(self.x_train)
+                xt = self._as_x(x_test)
+                mu, var = nystroem_posterior(
+                    self.kernel, self.x_train, resid, self.inducing, xt,
+                    self.noise, self.config.jitter)
+                mean_mu = self.mean.mean(xt)
+            return Posterior(mean_mu + mu, var, torch.sqrt(var), mean_mu, mu)
         return posterior(
             self.kernel, self.x_train, self.y_train, self._as_x(x_test),
             self.noise, self.config.jitter, self.mean, full_cov=full_cov,

@@ -16,7 +16,8 @@ The JAX package vmaps a whole Adam run over the segment axis. The port
 writes that axis out: the S Grams, each differentiable from its own slice
 of the stacked parameters, are stacked into one [S, L, L] tensor, the S
 NLLs are one batched Cholesky (``cholesky_ex`` and ``cholesky_solve``
-batch), and one ``torch.optim.Adam`` steps the stacked parameters. Adam
+batch), and one ``torch.optim.Adam`` steps the stacked parameters
+(:func:`adam_stacked`, which ``fit.fit_batch_independent`` shares). Adam
 acts elementwise, so each segment follows its own Adam run.
 """
 from __future__ import annotations
@@ -84,20 +85,28 @@ def masked_nll(K, y, mask, noise, jitter) -> torch.Tensor:
     return raw - 0.5 * n_pad * (chol.LOG_2PI + torch.log(c + sigma2))
 
 
-def stacked_gram(kernel, params, x: torch.Tensor) -> torch.Tensor:
-    """[S, L, L] Grams of x [S, L, d], segment s at slice s of the stacked
-    params tree (every leaf [S, ...]), each differentiable from its slice.
-    The kernel's installed parameters come back afterwards."""
-    before = kernel.get_params() if kernel.has_params() else None
+def _stacked(module, params, fn, S: int) -> torch.Tensor:
+    """``torch.stack`` of ``fn(s)`` for s < S, each evaluated with slice s
+    of the stacked ``params`` tree (every leaf [S, ...]) installed in
+    ``module``, so each is differentiable from its slice. The module's
+    installed parameters come back afterwards."""
+    before = module.get_params() if module.has_params() else None
     try:
         out = []
-        for s in range(x.shape[0]):
-            kernel.set_params(tree_map(lambda p: p[s], params))
-            out.append(kernel.gram(x[s], x[s]))
+        for s in range(S):
+            module.set_params(tree_map(lambda p: p[s], params))
+            out.append(fn(s))
         return torch.stack(out)
     finally:
         if before is not None:
-            kernel.set_params(before)
+            module.set_params(before)
+
+
+def stacked_gram(kernel, params, x: torch.Tensor) -> torch.Tensor:
+    """[S, L, L] Grams of x [S, L, d], segment s at slice s of the stacked
+    params tree."""
+    return _stacked(kernel, params, lambda s: kernel.gram(x[s], x[s]),
+                    x.shape[0])
 
 
 def segmented_nll(kernel_segments: Sequence, params_segments, x, y, mask,
@@ -141,23 +150,46 @@ def fit_segments_vmapped(
             "log_noise": torch.log(torch.as_tensor(init_noise, dtype=xb.dtype,
                                                    device=xb.device)),
         })
+    fixed_noise = torch.full((S,), init_noise, dtype=xb.dtype, device=xb.device)
+    u, final = adam_stacked(kernel, xb, yb, mb, inits, steps, lr,
+                            optimize_noise, fixed_noise, config.jitter)
+    with torch.no_grad():
+        kp = constrain(pos, u["kernel"])
+        noises = torch.exp(u["log_noise"]) if optimize_noise else fixed_noise
+    return kp, noises, final
+
+
+def adam_stacked(kernel, xb, yb, mb, inits, steps: int, lr: float,
+                 optimize_noise: bool, fixed_noise, jitter: float,
+                 mean=None):
+    """Adam over S independent problems as one batched program: ``inits``
+    holds one unconstrained tree per problem (``{"kernel", "log_noise"}``,
+    and ``"mean"`` with a ``mean``), stacked here on a leading axis S; each
+    step builds the S Grams (:func:`stacked_gram`), the S masked NLLs as
+    one batched Cholesky (:func:`masked_nll`; x [S, L, d], y and mask
+    [S, L]) and one Adam update of the stacked leaves. Adam acts
+    elementwise, so each problem follows its own Adam run. Returns (the
+    final stacked tree, detached; the S NLLs of the last step, before its
+    update). ``fixed_noise`` [S] is the noise when it is not optimised."""
+    S = xb.shape[0]
+    pos = kernel.positivity()
+    mpos = mean.positivity() if mean is not None else None
     u = tree_map(lambda *ls: torch.stack(ls).requires_grad_(True), *inits)
     opt = torch.optim.Adam(tree_leaves(u), lr=lr)
-    fixed_noise = torch.full((S,), init_noise, dtype=xb.dtype, device=xb.device)
     final = None
     for _ in range(steps):
         opt.zero_grad()
         noise = torch.exp(u["log_noise"]) if optimize_noise else fixed_noise
         K = stacked_gram(kernel, constrain(pos, u["kernel"]), xb)
-        nlls = masked_nll(K, yb, mb, noise, config.jitter)
+        resid = yb
+        if mean is not None:
+            resid = yb - _stacked(mean, constrain(mpos, u["mean"]),
+                                  lambda s: mean.mean(xb[s]), S)
+        nlls = masked_nll(K, resid, mb, noise, jitter)
         nlls.sum().backward()
         opt.step()
         final = nlls.detach()
-    with torch.no_grad():
-        kp = constrain(pos, tree_map(torch.Tensor.detach, u["kernel"]))
-        noises = (torch.exp(u["log_noise"].detach()) if optimize_noise
-                  else fixed_noise)
-    return kp, noises, final
+    return tree_map(torch.Tensor.detach, u), final
 
 
 def _own_modules(modules) -> list:

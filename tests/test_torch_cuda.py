@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: K1 (Gram·V), K2 (the low-rank-cotangent
 gradient), the composite-expression kernels K3 and K4, and the dense Gram
-kernels K5 and K6 with the dense route around them. Marked ``cuda``:
+kernels K5 and K6 with the dense route around them and the Nyström
+posterior they serve. Marked ``cuda``:
 skipped where no GPU is present, run on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -709,6 +710,42 @@ def test_dense_posterior_launches_two_gram_kernels(cuda):
     # the variance is ~1e-4 of k_ss here: held relative to its own size
     assert float((post.var.double() - ref.var).abs().max()) <= (
         0.1 * float(ref.var.abs().max()))
+
+
+def test_nystroem_posterior_launches_k5_per_gram_and_matches_f64(cuda):
+    """The projected-process posterior through the facade after a Nyström
+    fit: one K5 launch for each of K_nm, K_mm and K_tm, none in the fit
+    (``kernel.gram`` under autograd), and μ within 1e-3·max|μ|, var within
+    5e-2·max|var| of the CPU float64 ``nystroem_posterior`` at the same
+    parameters, inducing set and jitter level."""
+    from gaussianprocessfundamentals_tpu_torch.linalg.nystroem import (
+        nystroem_jitter,
+        nystroem_posterior,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.sort(torch.rand(3000, 1, generator=g), dim=0).values
+    y = torch.sin(8 * x[:, 0]) + 0.1 * torch.randn(3000, generator=g)
+    xt = torch.linspace(0, 1, 100)[:, None]
+    gp = gpt.GaussianProcess(gpt.SquaredExponentialKernel(scaled=True))
+    before = cuda_dense_gram.se_gram.launches
+    gp.fit(x, y, method="adam", steps=5, optimize_noise=True, noise=1e-2,
+           approximation="nystroem", n_inducing=64, optimize_inducing=True)
+    assert cuda_dense_gram.se_gram.launches == before
+    post = gp.posterior(xt)
+    assert cuda_dense_gram.se_gram.launches == before + 3
+    z = gp.inducing
+    with torch.no_grad():
+        jit = float(nystroem_jitter(cuda_dense_gram.dense_gram_for(
+            gp.kernel, z, z), 1e-8))
+    k64 = copy.deepcopy(gp.kernel).double().cpu()
+    mu, var = nystroem_posterior(k64, x.double(), y.double(),
+                                 z.double().cpu(), xt.double(),
+                                 gp.noise.double().cpu(), jit)
+    assert float((post.mean.double().cpu() - mu).abs().max()) <= (
+        1e-3 * float(mu.abs().max()))
+    assert float((post.var.double().cpu() - var).abs().max()) <= (
+        5e-2 * float(var.abs().max()))
 
 
 def test_dense_router_refuses_hyperparameters_that_require_grad(cuda):

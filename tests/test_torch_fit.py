@@ -303,10 +303,14 @@ def test_fit_routing_and_what_is_not_ported():
     x, y = _data(64, seed=8)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     k = gpt.SquaredExponentialKernel()
+    # ported: SciPy's BFGS, an approximation objective (its inducing set
+    # in the result), optimize_inducing (a no-op without an approximation,
+    # as in the JAX package)
     for kw in ({"method": "scipy-bfgs"}, {"approximation": "nystroem"},
                {"optimize_inducing": True}):
-        with pytest.raises(NotImplementedError, match="M7"):
-            gpt.fit(k, xt, yt, **kw)
+        res = gpt.fit(k, xt, yt, **kw)
+        assert np.isfinite(res.nll_post) and res.nll_post <= res.nll_pre
+        assert (res.inducing is not None) == ("approximation" in kw)
     # the k-fold objective is ported; its fold split needs a generator
     with pytest.raises(ValueError, match="generator"):
         gpt.fit(k, xt, yt, kfold=3)

@@ -51,6 +51,25 @@ cp = gpt.ChangePoint(children=(gpt.SquaredExponentialKernel(),
                                gpt.PeriodicKernel()))
 kf = gpt.fit(cp, torch.from_numpy(x[:80]), torch.from_numpy(y[:80]), kfold=3,
              optimize_noise=True, generator=torch.Generator().manual_seed(0))
+# the approximation slice: a Nystroem fit with trainable inducing inputs and
+# its projected-process posterior, SKI, SciPy's BFGS, independent batched
+# fits and the float64 Toeplitz oracle
+ny = gpt.GaussianProcess(gpt.SquaredExponentialKernel(scaled=True), device="cpu")
+ny.fit(x, y, method="adam", steps=3, optimize_noise=True,
+       approximation="nystroem", n_inducing=16, optimize_inducing=True)
+post3 = ny.posterior(np.linspace(0, 1, 20, dtype=np.float32)[:, None])
+xs, ys = torch.from_numpy(x[:120]), torch.from_numpy(y[:120])
+ski = gpt.fit(gpt.SquaredExponentialKernel(), xs, ys, method="adam", steps=2,
+              optimize_noise=True, approximation="ski")
+bfgs = gpt.fit(gpt.SquaredExponentialKernel(), xs, ys, method="scipy-bfgs",
+               optimize_noise=True)
+_, noises, finals = gpt.fit_batch_independent(
+    gpt.SquaredExponentialKernel(), torch.stack([xs[:60], xs[60:]]),
+    torch.stack([ys[:60], ys[60:]]), steps=3)
+from gaussianprocessfundamentals_tpu_torch.utils.toeplitz_oracle import (
+    se_grid_posterior_oracle)
+_, var_o, rel_o = se_grid_posterior_oracle(
+    500, 0.05, 1e-2, np.array([0.3, 0.6]), np.sin(np.linspace(0, 3, 500)))
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
@@ -64,7 +83,11 @@ print(json.dumps({
                    and torch.isfinite(mu).all() and torch.isfinite(var).all()
                    and torch.isfinite(draws).all()
                    and bool(np.isfinite(bw.log_marginal_likelihood()))
-                   and bool(np.isfinite(kf.nll_post))),
+                   and bool(np.isfinite(kf.nll_post))
+                   and torch.isfinite(post3.mean).all() and torch.isfinite(post3.var).all()
+                   and bool(np.isfinite(ski.nll_post)) and bool(np.isfinite(bfgs.nll_post))
+                   and torch.isfinite(noises).all() and torch.isfinite(finals).all()
+                   and bool(np.isfinite(var_o).all()) and rel_o < 1e-10),
     "fit_steps": len(res.history) + len(res2.history),
 }))
 """
@@ -74,8 +97,10 @@ def test_port_imports_and_serves_without_jax():
     """Also 3-step iterative fits on the streamed route, of an SE kernel
     (K1 + K2 plain) and of the Mauna Loa composite (K3 + K4 plain), and the
     composite's posterior; a BlockwiseGP fit, prediction and log marginal
-    likelihood on the dense route (K5 + K6 plain), posterior draws, and a
-    k-fold fit of a ChangePoint kernel."""
+    likelihood on the dense route (K5 + K6 plain), posterior draws, a
+    k-fold fit of a ChangePoint kernel, and the approximation slice: a
+    Nyström fit and its projected-process posterior, an SKI fit, a SciPy
+    BFGS fit, independent batched fits and the Toeplitz oracle."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests
