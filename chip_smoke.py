@@ -4,7 +4,9 @@ the dense exact route with its Gram kernels (K5 and K6): dense serving,
 sampling, and segmented GPs at N = 100k; then the JAX package's 50k
 variance gate, a fit and posterior at N = 200k, where a float32 K cannot
 exist on the card, and the approximations (Nyström with its
-projected-process posterior through K5/K6, the SKC bounds, SKI).
+projected-process posterior through K5/K6, the SKC bounds, SKI); then SVGP
+at N = 100k and pathwise posterior draws at N = 20k through K5/K6, the
+greedy kernel search on the Mauna Loa record, and a batched fit.
 
     python3 chip_smoke.py
 
@@ -120,7 +122,9 @@ non-zero):
     d = 2, the Nyström posterior's 100,000 × 2,048, 2,048² and
     1,000 × 2,048 of phase 26), at ragged segment sizes (m mod 4 = 1, 2
     and 3: 6,105², 6,511², 6,511 × 651) and at d = 12 and 20 (K5) and
-    d = 2 for both ν (K6):
+    d = 2 for both ν (K6), and phases 28 and 29's 512² (with SVGP's
+    jitter floor), 512 × 100,000, 20,000² (σ² + jitter) and
+    20,000 × 1,000:
     each checked against its plain version, then its device time (a CUDA
     graph of back-to-back launches, each into memory of its own, replayed
     between CUDA events) and share of the bound, and the per-call wall of
@@ -162,7 +166,30 @@ non-zero):
 27. the SKC bounds and the Nyström log likelihood at n = 4,096 (float32,
     value and gradient): skc_lower ≤ float64 dense log likelihood ≤
     skc_upper; SKI's two log likelihoods at N = 20,000 on 2,000 grid
-    points, value and gradient finite, with their CG iteration counts.
+    points, value and gradient finite, with their CG iteration counts;
+28. BASELINE config 4 (example 04): ``fit_svgp`` of SE~s at N = 100,000,
+    m = 512, batch 4,096, lr 1e-2, 3,000 Adam steps in float32 (steps/s,
+    −ELBO first and last, no NaN in the history, peak memory), then
+    ``svgp_predict`` at the training inputs: exactly 2 K5 launches (K_mm
+    with its jitter floor, K_mx), MSE on the first 20,000 rows < 0.02,
+    var ≥ 0, μ and var against ``svgp_predict`` in float64 on the card at
+    the same parameters and K_mm jitter (phase 19's limits); K5 held
+    against its plain version at both shapes; 5 more steps under
+    ``torch.cuda.set_sync_debug_mode("error")``;
+29. example 06 at the dense route's top: ``pathwise_posterior_samples`` of
+    Matérn-5/2~s at N = 20,000, 64 paths at 1,000 points, 2,048 features,
+    300 CG iterations: exactly 2 K6 launches (K + (σ² + jitter)·I, K_s),
+    the sample mean and variance against the facade's float64 dense
+    posterior (``pathwise_gates``: limits and why in ``PERF.md`` §5), K6
+    held against its plain version at both shapes;
+30. example 10: ``greedy_kernel_search`` on ``data/d2_mauna_loa.csv``
+    (min-max normalised, the first 80% for training), max_depth=2,
+    restarts=2, steps=150, in float64: BIC trace, structure, candidates,
+    wall, held-out MSE through the facade's posterior; the score ≤ the
+    best base kernel's, every BIC finite;
+31. 8 copies of one 4,000-row problem through ``fit(method="auto")`` as
+    batched input against ``fit`` on the one problem, in float64:
+    parameters and NLL within 1e-3 relative, wall and peak memory.
 
 Each path's launch counts (all six kernels) are set to 0 just before it
 is driven and read just after. The second-to-last line, after the card's
@@ -172,8 +199,9 @@ the SE posterior of phase 5, the SE fit of phase 8, the composite fit of
 phase 14, the composite posterior of phase 15, the dense posteriors of
 phase 19, the segmented and partitioned paths of phases 20 and 21, the
 ChangePoint posterior of phase 23, the 50k gate of phase 24, the 200k fit
-and posterior of phase 25, the Nyström posteriors of phase 26), the
-largest absolute and relative
+and posterior of phase 25, the Nyström posteriors of phase 26, the SVGP
+predict of phase 28, the pathwise draws of phase 29, the search of phase
+30 and the batched fit of phase 31), the largest absolute and relative
 differences from the plain version over the checks (relative: K1's, K3's,
 K5's and K6's max|diff| / max|ref|, K2's per scalar, K4's per parameter
 array), the kernel's and the plain version's times at the main path's
@@ -1857,6 +1885,9 @@ def phase_k56_time(dg=None, label: str = "") -> dict:
     var = 1.3
     path_diag = NOISE + float(effective_jitter_of_diag(
         torch.full((1,), var), 1e-8))
+    # SVGP's K_mm carries its jitter floor alone (phase 28)
+    svgp_floor = float(effective_jitter_of_diag(torch.full((1,), var), 1e-8,
+                                                2000.0))
     part_n = N_PART // 4  # one box of phase 21
     seg_n, seg_t = N_SEG // S_SEG, T_SEG // S_SEG
     # phase 20's segments hold 6,105-6,511 rows: m % 4 = 1, 2 and 3
@@ -1876,6 +1907,10 @@ def phase_k56_time(dg=None, label: str = "") -> dict:
             (N_NY, M_NY, 1, 0.0, f"{N_NY}x{M_NY}"),
             (M_NY, M_NY, 1, 0.0, f"{M_NY}^2"),
             (T_MAIN, M_NY, 1, 0.0, f"{T_MAIN}x{M_NY}"),
+            (M_SVGP, M_SVGP, 1, svgp_floor, f"{M_SVGP}^2"),
+            (M_SVGP, N_SVGP, 1, 0.0, f"{M_SVGP}x{N_SVGP}"),
+            (N_PW, N_PW, 1, PW_NOISE + 1e-8, f"{N_PW}^2"),
+            (N_PW, T_PW, 1, 0.0, f"{N_PW}x{T_PW}"),
             (part_n, part_n, 2, path_diag, f"{part_n}^2 d=2"),
             (part_n, 2000 // 4, 2, 0.0, f"{part_n}x{2000 // 4} d=2"),
             *((seg_n, seg_n, d, path_diag, f"{seg_n}^2 d={d}")
@@ -2455,6 +2490,379 @@ def phase_skc_ski() -> None:
             raise RuntimeError(f"{fn.__name__}: value or gradient not finite")
 
 
+# --- SVGP, pathwise sampling, the kernel search, batched fit -----------------
+
+# BASELINE config 4 and examples/04_svgp_100k.py: N = 100k, m = 512
+N_SVGP, M_SVGP, B_SVGP, SVGP_STEPS = 100_000, 512, 4_096, 3_000
+SVGP_MSE_ROWS = 20_000
+# example 06 at the dense route's top: N = 20,000 rows (the posterior's
+# dense-to-chunked crossover), t = 1,000, 64 paths of 2,048 features
+N_PW, T_PW, S_PW, D_PW, PW_ITERS = 20_000, 1_000, 64, 2_048, 300
+PW_NOISE = 1e-2
+# the variance gate's band on (sample variance / posterior variance): the
+# chi-square spread of 64 paths (chi2_63/63 in [0.40, 1.86] at 1e-5 per
+# point) times the RFF variance bias at D = 2,048 (0.74-1.01 pointwise with
+# 1,024 paths at N = 3,000 and 8,000 on the CPU); the mean of the ratio
+# over the test points is held to [0.6, 1.4]
+PW_VAR_BAND, PW_VAR_MEAN_BAND = (0.3, 2.5), (0.6, 1.4)
+# examples/10_kernel_search_mauna.py's knobs
+SEARCH_DEPTH, SEARCH_RESTARTS, SEARCH_STEPS = 2, 2, 150
+B_BATCH, N_BATCH = 8, 4_000
+BATCH_RTOL = 1e-3
+
+
+def svgp_data(n: int, seed: int = 0):
+    """examples/04_svgp_large.py's data, drawn as it draws them (numpy's
+    ``default_rng(seed)``): x ~ U(0, 1), y = sin(12x) + 0.5·sin(31x) +
+    0.1ε, float32 on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (n, 1))
+    y = (np.sin(12 * x[:, 0]) + 0.5 * np.sin(31 * x[:, 0])
+         + 0.1 * rng.standard_normal(n))
+    return (torch.tensor(x, dtype=torch.float32, device="cuda"),
+            torch.tensor(y, dtype=torch.float32, device="cuda"))
+
+
+def svgp_transient_steps(hist) -> int:
+    """Steps after the first 1,000 whose −ELBO lies more than 2e4 above
+    the median of those steps: the fit's transients (inducing inputs that
+    cross leave the whitened basis steep, ROADMAP.md §3 item 4)."""
+    late = np.asarray(hist)[1000:]
+    return int((late > np.median(late) + 2e4).sum())
+
+
+def phase_svgp() -> dict:
+    """BASELINE config 4 on example 04's data (:func:`svgp_data`):
+    ``fit_svgp`` of SE~s at N = 100,000, m = 512, batch 4,096, lr 1e-2,
+    3,000 Adam steps in float32 (steps/s, −ELBO first and last, NaNs and
+    transient steps in the history, peak memory), then ``svgp_predict`` at
+    the 100,000 training inputs: exactly 2 K5 launches (K_mm + its jitter
+    floor, K_mx), none of K1-K4; MSE on the first 20,000 rows < 0.02 (the
+    noise floor is 0.01); var ≥ 0; μ within 1e-3·max|μ| and var within
+    DENSE_VAR_RTOL·max|var| of ``svgp_predict`` in float64 on the card at
+    the same parameters and K_mm jitter (the float32 floor, 2000·eps·mean
+    diag, is part of the model); K5 held against its plain version at
+    512² and 512 × 100,000; then 5 more steps under
+    ``torch.cuda.set_sync_debug_mode("error")``: no step reads the host."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import (
+        effective_jitter_of_diag,
+    )
+    from gaussianprocessfundamentals_tpu_torch.models import svgp
+    from gaussianprocessfundamentals_tpu_torch.ops import cuda_dense_gram as dg
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_map
+
+    x, y = svgp_data(N_SVGP)
+    kernel = gpt.SquaredExponentialKernel(scaled=True).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    params, hist = gpt.fit_svgp(kernel, x, y, m=M_SVGP, generator=gen,
+                                batch_size=B_SVGP, steps=SVGP_STEPS, lr=1e-2)
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_counts = _launch_counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    h = hist.cpu().numpy()  # the history's one read to the host
+    nans = int(np.isnan(h).sum())
+    transients = svgp_transient_steps(h)
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    mu, var = gpt.svgp_predict(kernel, params, x)
+    torch.cuda.synchronize()
+    pred_wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    pred_peak = torch.cuda.max_memory_allocated()
+    rows = slice(0, SVGP_MSE_ROWS)
+    mse = float(torch.mean((mu[rows] - y[rows]) ** 2))
+
+    floor = float(effective_jitter_of_diag(kernel.diag(params.z), 1e-8,
+                                           2000.0))
+    p64 = svgp.SVGPParams(tree_map(torch.Tensor.double, params.kernel_u),
+                          *(t.double() for t in params[1:]))
+    mu64, var64 = gpt.svgp_predict(_f64(kernel), p64, x.double(),
+                                   jitter=floor)
+    mu_err = float((mu.double() - mu64).abs().max())
+    mu_lim = 1e-3 * float(mu64.abs().max())
+    var_err = float((var.double() - var64).abs().max())
+    var_max = float(var64.abs().max())
+    var_lim = DENSE_VAR_RTOL * var_max
+    ls, vk = float(kernel.lengthscale), float(kernel.variance)
+    worst = _worse(
+        _k56_check(dg.se_gram, dg.plain_se_gram, params.z, params.z, ls, vk,
+                   floor, "svgp K_mm + floor"),
+        _k56_check(dg.se_gram, dg.plain_se_gram, params.z, x, ls, vk, 0.0,
+                   "svgp K_mx"))
+
+    trained, opt = svgp.svgp_adam_init(params, 1e-2)
+
+    def step():
+        idx = torch.randint(0, N_SVGP, (B_SVGP,), generator=gen,
+                            device="cuda")
+        return svgp.svgp_adam_step(kernel, trained, opt, x[idx], y[idx],
+                                   N_SVGP)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sync_losses = torch.stack([step() for _ in range(5)])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[svgp] N={N_SVGP} SE~s m={M_SVGP} batch={B_SVGP} lr=1e-2 float32: "
+        f"{SVGP_STEPS} Adam steps in {fit_wall:.3f} s ("
+        f"{SVGP_STEPS / fit_wall:.1f} steps/s, initialisation included), "
+        f"-ELBO {h[0]:.1f} -> {h[-1]:.1f}, NaNs in the history {nans}, "
+        f"transient steps after step 1000 {transients}, "
+        f"launches {fit_counts}, peak mem {fit_peak / 1e9:.3f} GB; fitted "
+        f"l={ls:.5f} var={vk:.5f} noise={float(params.log_noise.exp()):.5f}")
+    log(f"[svgp] svgp_predict at {N_SVGP} points: wall {pred_wall:.4f} s, "
+        f"launches {counts}, peak mem {pred_peak / 1e9:.3f} GB; MSE on the "
+        f"first {SVGP_MSE_ROWS} rows {mse:.5f} (limit 0.02; noise 0.01); vs "
+        f"float64 on the card at the K_mm jitter {floor:.3e}: mu max|diff| "
+        f"{mu_err:.3e} (limit {mu_lim:.3e}), var max|diff| {var_err:.3e} "
+        f"(limit {var_lim:.3e} = {DENSE_VAR_RTOL:g} x max|var| {var_max:.3e}); "
+        f"5 steps under sync debug mode 'error': no host read, losses "
+        f"{[float(f'{v:.1f}') for v in sync_losses.cpu()]}")
+    checks = {
+        "no NaN in the history": nans == 0,
+        "-ELBO falls": h[-1] < h[0],
+        "the fit (kernel.gram under autograd) launches no kernel":
+        sum(fit_counts.values()) == 0,
+        "2 K5 launches per predict": counts["K5"] == 2,
+        "no other kernel": sum(counts.values()) == 2,
+        "MSE on the first 20,000 rows < 0.02": mse < 0.02,
+        "finite, var >= 0": bool(torch.isfinite(mu).all()
+                                 and torch.isfinite(var).all()
+                                 and (var >= 0).all()),
+        "mu within 1e-3 of float64": mu_err <= mu_lim,
+        f"var within {DENSE_VAR_RTOL:g} x max|var| of float64":
+        var_err <= var_lim,
+        "sync-debug steps finite": bool(torch.isfinite(sync_losses).all()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"SVGP checks failed: {failed}")
+    return {"counts": counts, "worst": worst}
+
+
+def _pathwise_problem():
+    """Example 06 at N = 20,000: ``synth_se``'s recipe (``_se_draw``:
+    ℓ = 0.2, noise sd 0.1), t = 1,000 grid points, Matérn-5/2~s at ℓ = 0.2,
+    variance 1; and the facade's dense posterior in float64 on the card at
+    the same parameters. Returns (kernel, x, y, xt, μ, var)."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    x, y, _ = _se_draw(N_PW, seed=29)
+    xt = torch.linspace(0.0, 1.0, T_PW, device="cuda")[:, None]
+    kernel = gpt.Matern52Kernel(scaled=True).set_params({
+        "lengthscale": torch.tensor(0.2), "variance": torch.tensor(1.0)}).cuda()
+    gp64 = gpt.GaussianProcess(_f64(kernel), noise=PW_NOISE,
+                               device="cuda").set_data(x.double(), y.double())
+    post = gp64.posterior(xt.double(), method="dense")
+    torch.cuda.synchronize()
+    return kernel, x, y, xt, post.mean, post.var
+
+
+def pathwise_gates(samples, mu, var) -> dict:
+    """Phase 29's gates on draws [s, t] against the float64 posterior:
+    the sample mean within 4·sd/√s + 1e-3·max|μ| of μ at every point (the
+    RFF prior draws and the noise draws have mean zero for any feature
+    set, so the mean carries no RFF bias; 1e-3·max|μ| covers float32 and
+    the CG), and the sample variance / var inside PW_VAR_BAND at every
+    point and PW_VAR_MEAN_BAND on average. Returns the readings, with
+    ``ok``."""
+    s = samples.shape[0]
+    sd = torch.sqrt(var)
+    m, v = samples.double().mean(0), samples.double().var(0)
+    mean_lim = 4.0 * sd / s ** 0.5 + 1e-3 * float(mu.abs().max())
+    ratio = v / var
+    out = {"mean_excess": float(((m - mu).abs() / mean_lim).max()),
+           "mean_z": float(((m - mu).abs() / (sd / s ** 0.5)).max()),
+           "ratio_min": float(ratio.min()), "ratio_max": float(ratio.max()),
+           "ratio_mean": float(ratio.mean())}
+    out["ok"] = (out["mean_excess"] <= 1.0
+                 and PW_VAR_BAND[0] <= out["ratio_min"]
+                 and out["ratio_max"] <= PW_VAR_BAND[1]
+                 and PW_VAR_MEAN_BAND[0] <= out["ratio_mean"]
+                 <= PW_VAR_MEAN_BAND[1])
+    return out
+
+
+def phase_pathwise() -> dict:
+    """Example 06 at the dense route's top: ``pathwise_posterior_samples``
+    of Matérn-5/2~s at N = 20,000, 64 paths at 1,000 points, D = 2,048
+    features, 300 CG iterations: exactly 2 K6 launches (K + (σ² +
+    jitter)·I, K_s) and none of K1-K4; :func:`pathwise_gates` against the
+    facade's float64 dense posterior; K6 held against its plain version at
+    both shapes."""
+    from gaussianprocessfundamentals_tpu_torch.models.rff import (
+        pathwise_posterior_samples,
+    )
+    from gaussianprocessfundamentals_tpu_torch.ops import cuda_dense_gram as dg
+
+    kernel, x, y, xt, mu, var = _pathwise_problem()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    samples = pathwise_posterior_samples(
+        kernel, x, y, xt, PW_NOISE, gen, num_samples=S_PW,
+        num_features=D_PW, max_iters=PW_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gates = pathwise_gates(samples, mu, var)
+    shift = PW_NOISE + 1e-8
+    worst = _worse(
+        _k56_check(dg.matern_gram, dg.plain_matern_gram, x, x, 0.2, 1.0,
+                   shift, "pathwise K + (noise + jitter)I", {"nu": "52"}),
+        _k56_check(dg.matern_gram, dg.plain_matern_gram, x, xt, 0.2, 1.0,
+                   0.0, "pathwise K_s", {"nu": "52"}))
+    log(f"[pathwise] N={N_PW} Matern-5/2~s l=0.2 noise={PW_NOISE} "
+        f"{S_PW} paths at {T_PW} points, D={D_PW}, {PW_ITERS} CG iterations: "
+        f"wall {wall:.3f} s, launches {counts}, peak mem {peak / 1e9:.3f} GB; "
+        f"vs the float64 dense posterior (var {float(var.min()):.3e}-"
+        f"{float(var.max()):.3e}): max|mean - mu| / (sd/8) "
+        f"{gates['mean_z']:.3f}, / its limit {gates['mean_excess']:.3f} "
+        f"(<= 1); sample var / var min {gates['ratio_min']:.3f} max "
+        f"{gates['ratio_max']:.3f} (band {PW_VAR_BAND}) mean "
+        f"{gates['ratio_mean']:.3f} (band {PW_VAR_MEAN_BAND}) "
+        f"{'ok' if gates['ok'] else 'FAIL'}")
+    checks = {
+        "2 K6 launches": counts["K6"] == 2,
+        "no other kernel": sum(counts.values()) == 2,
+        "samples finite": bool(torch.isfinite(samples).all()),
+        "mean and variance gates": gates["ok"],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"pathwise checks failed: {failed}")
+    return {"counts": counts, "worst": worst}
+
+
+def _mauna_csv():
+    """``data/d2_mauna_loa.csv`` read with numpy, x and y min-max
+    normalised, the first 80% for training and the rest held out, float64
+    on the card."""
+    raw = np.loadtxt(Path(__file__).resolve().parent / "data"
+                     / "d2_mauna_loa.csv", delimiter=",", skiprows=1)
+    lo, hi = raw.min(0), raw.max(0)
+    z = torch.tensor((raw - lo) / (hi - lo), dtype=torch.float64,
+                     device="cuda")
+    cut = int(0.8 * len(z))
+    return z[:cut, :1], z[:cut, 1], z[cut:, :1], z[cut:, 1]
+
+
+def phase_search() -> dict:
+    """Example 10: ``greedy_kernel_search`` on the Mauna Loa record
+    (max_depth=2, restarts=2, steps=150) in float64 on the card (the
+    dense route at n = 420; K5/K6 take float32 only), then the found
+    structure's posterior through the facade on the held-out 20%: BIC
+    trace, structure, candidates, wall, held-out MSE; the score ≤ the best
+    base kernel's, every candidate's BIC finite, no kernel launched."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.models.search import (
+        default_base_kernels,
+    )
+
+    x, y, xh, yh = _mauna_csv()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gpt.greedy_kernel_search(
+        x, y, max_depth=SEARCH_DEPTH, seed=0,
+        fit_kwargs={"steps": SEARCH_STEPS, "restarts": SEARCH_RESTARTS,
+                    "optimize_noise": True})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gp = gpt.GaussianProcess(res.kernel, noise=res.noise,
+                             device="cuda").set_data(x, y)
+    post = gp.posterior(xh)
+    counts = _launch_counts()
+    mse = float(torch.mean((post.mean - yh) ** 2))
+    base_best = min(s for _, s in res.history[:len(default_base_kernels())])
+    log(f"[search] Mauna Loa n_train={x.shape[0]} n_held_out={xh.shape[0]} "
+        f"float64, max_depth={SEARCH_DEPTH} restarts={SEARCH_RESTARTS} "
+        f"steps={SEARCH_STEPS}: BIC trace "
+        f"{[(name, round(s, 1)) for name, s in res.history]}")
+    log(f"[search] found {res.kernel} (canonical {res.kernel.canonical_str()})"
+        f", BIC {res.score:.1f} (best base {base_best:.1f}); "
+        f"{len(res.history)} candidates in {wall:.1f} s; held-out MSE "
+        f"{mse:.6f} (normalised y); launches {counts}; the JAX package's "
+        "run found MAT52*PER + MAT52")
+    checks = {
+        "score <= the best base kernel's": res.score <= base_best,
+        "every candidate's BIC finite":
+        all(np.isfinite(s) for _, s in res.history),
+        "held-out MSE finite": np.isfinite(mse),
+        "no kernel launched": sum(counts.values()) == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"kernel search checks failed: {failed}")
+    return {"counts": counts}
+
+
+def phase_batched_fit() -> dict:
+    """8 copies of one 4,000-row problem (the SE training data of phase 8,
+    SE~s + Constant + Linear) through ``fit(method="auto")`` as one batched
+    [8, 4000, 1] input (the dense L-BFGS route, one parameter set), against
+    ``fit`` on the one problem: parameters and NLL within 1e-3 relative;
+    wall time and peak memory of both. In float64: the gate holds the
+    batched objective to the single one, and in float32 the two L-BFGS
+    runs part within the optimum's flat directions (8e-4 relative at
+    3 x 600 rows on the CPU), which says nothing about the batching."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+
+    x, y = (t.double() for t in _trend_data(N_BATCH, seed=31))
+    runs = {}
+    for tag, xx, yy in (("one", x, y),
+                        ("batched", x.expand(B_BATCH, -1, -1),
+                         y.expand(B_BATCH, -1))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = gpt.fit(gpt.SquaredExponentialKernel(scaled=True).cuda(), xx, yy,
+                      mean=(gpt.ConstantMean() + gpt.LinearMean(dim=1)).cuda(),
+                      method="auto", optimize_noise=True, noise=1e-2)
+        torch.cuda.synchronize()
+        runs[tag] = (res, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated(), _launch_counts())
+    vals = {tag: np.array([float(t) for t in
+                           tree_leaves(r[0].kernel_params)
+                           + tree_leaves(r[0].mean_params)]
+                          + [float(r[0].noise), r[0].nll_post])
+            for tag, r in runs.items()}
+    rel = float(np.max(np.abs(vals["batched"] - vals["one"])
+                       / np.abs(vals["one"])))
+    counts = runs["batched"][3]
+    log(f"[batched-fit] {B_BATCH} x {N_BATCH} rows, SE~s + Constant + Linear, "
+        f"float64, fit(method='auto') (dense L-BFGS): batched wall "
+        f"{runs['batched'][1]:.3f} s, peak mem {runs['batched'][2] / 1e9:.3f} "
+        f"GB; one problem wall {runs['one'][1]:.3f} s, peak mem "
+        f"{runs['one'][2] / 1e9:.3f} GB; (l, var, const, slope, noise, NLL) "
+        f"batched {np.round(vals['batched'], 6).tolist()} one "
+        f"{np.round(vals['one'], 6).tolist()}: max relative diff {rel:.3e} "
+        f"(limit {BATCH_RTOL:g}); launches {counts}")
+    checks = {
+        "8 copies fit the one problem's parameters and NLL": rel <= BATCH_RTOL,
+        "NLL falls": runs["batched"][0].nll_post < runs["batched"][0].nll_pre,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"batched fit checks failed: {failed}")
+    return {"counts": counts}
+
+
 def _kernel_entry(name, source, replaces, by_path, worst, times) -> dict:
     ms, plain_ms, bound_ms, bound_by = times
     return {"name": name, "route": "cuda",
@@ -2494,12 +2902,18 @@ def main() -> None:
     story = phase_story_200k()
     ny = phase_nystroem()
     phase_skc_ski()
+    svgp_res = phase_svgp()
+    pw = phase_pathwise()
+    search = phase_search()
+    batched = phase_batched_fit()
     k1_worst = _worse(_worse(k1_worst, main_res["worst"]), fit_time["k1_worst"])
     k2_worst = _worse(k2_worst, fit_time["worst"])
     k3_worst = _worse(k3_worst, expr_time["k3_worst"])
     k4_worst = _worse(k4_worst, expr_time["k4_worst"])
     k56_worst = {k: _worse(_worse(v, k56_time["worst"][k]), ny["worst"][k])
                  for k, v in k56_worst.items()}
+    k56_worst["K5"] = _worse(k56_worst["K5"], svgp_res["worst"])
+    k56_worst["K6"] = _worse(k56_worst["K6"], pw["worst"])
     dense_counts = {k: sum(c[k] for c in dense["counts"].values())
                     for k in _wrappers()}
     paths = {"posterior": main_res["counts"], "fit": fit_res["counts"],
@@ -2511,7 +2925,9 @@ def main() -> None:
              "var_gate_50k": var_gate["counts"], "story_200k": story["counts"],
              "nystroem_posterior": ny["counts"]["se"],
              "nystroem_posterior_mat52": ny["counts"]["mat52"],
-             "nystroem_posterior_m10000": ny["counts"][f"se_m{M_NY_RATIO}"]}
+             "nystroem_posterior_m10000": ny["counts"][f"se_m{M_NY_RATIO}"],
+             "svgp_predict": svgp_res["counts"], "pathwise": pw["counts"],
+             "search": search["counts"], "batched_fit": batched["counts"]}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in _wrappers()}
     k1_widths = {1: main_res["times"][1], R_CG: fit_time["k1"],
                  256: main_res["times"][256]}

@@ -13,8 +13,13 @@ O(nm²) approximation objectives (``approximation=`` Nyström, the SKC
 bounds or SKI, with trainable inducing inputs; the facade then serves the
 projected-process posterior), SciPy's BFGS and CG (``method="scipy-bfgs"``,
 ``"scipy-cg"``); ``fit_batch_independent`` fits a batch of independent
-problems as one program. On the GPU the work runs in hand-written CUDA
-kernels: the dense route's Grams (and the Nyström posterior's) in
+problems as one program, and ``fit`` takes instance-stacked [b, n, d]
+input with one parameter set shared by the instances. Beside the exact GP: SVGP (``fit_svgp``,
+``svgp_predict``, the minibatch and collapsed ELBOs), random-Fourier-
+feature prior draws and pathwise posterior samples
+(``pathwise_posterior_samples``), and a greedy BIC search over kernel
+expressions (``greedy_kernel_search``). On the GPU the work runs in
+hand-written CUDA kernels: the dense route's Grams (and the Nyström posterior's) in
 ``csrc/dense_gram.cu`` (SE and Matérn leaves, K + (σ² + jitter)·I in one
 pass); above 40k rows, where K is never formed, Gram·V in
 ``csrc/gram_matvec.cu`` and the gradient's low-rank contraction in
@@ -101,16 +106,34 @@ from gaussianprocessfundamentals_tpu_torch.models.iterative import (
     iterative_posterior_chunked,
     iterative_posterior_mean,
 )
+from gaussianprocessfundamentals_tpu_torch.models.rff import (
+    pathwise_posterior_samples,
+    rff_features,
+    rff_init,
+    rff_prior_sample,
+)
+from gaussianprocessfundamentals_tpu_torch.models.search import (
+    greedy_kernel_search,
+)
 from gaussianprocessfundamentals_tpu_torch.models.segmented import (
     BlockwiseGP,
     PartitionedGP,
     fit_segments_vmapped,
 )
+from gaussianprocessfundamentals_tpu_torch.models.svgp import (
+    SVGPParams,
+    collapsed_elbo,
+    fit_svgp,
+    svgp_elbo,
+    svgp_predict,
+)
 from gaussianprocessfundamentals_tpu_torch.utils.checkpoint import (
     load,
     params_from_numpy,
+    rff_state_from_numpy,
     save,
     stacked_params_from_numpy,
+    svgp_params_from_numpy,
     tree_from_numpy,
 )
 

@@ -445,7 +445,8 @@ def fit(
     below ``_AUTO_ITERATIVE_N`` rows and the matrix-free iterative Adam
     route (``steps``, ``lr``, ``iterative_kwargs``) from there on. "lbfgs"
     and "adam" switch to the iterative route, with a warning, when the
-    dense working set ~3·n²·itemsize exceeds ``config.dense_hbm_budget``.
+    dense working set ~3·b·n²·itemsize (b instances) exceeds
+    ``config.dense_hbm_budget``.
     ``restarts > 0`` adds that many random starts inside the bounds, drawn
     from ``generator`` (required on the dense route), and keeps the best
     final NLL. A non-finite result is retried with the jitter ×10, up to
@@ -467,21 +468,28 @@ def fit(
     Approximations, the k-fold objective and a custom ``gram_fn`` keep the
     fit off the iterative route.
 
-    Not ported yet (``NotImplementedError``): batched (instance-stacked)
-    inputs.
+    Batched (instance-stacked) input, x [..., n, d] and y [..., n], fits
+    one parameter set shared by the instances to the mean of their NLLs
+    on the dense route (its working set counts every instance); without
+    ``xrange`` the x-range is taken over every row of every instance. The
+    k-fold and approximation objectives take one instance only.
     """
-    if x.ndim != 2:
-        raise NotImplementedError(
-            "fit(): batched (instance-stacked) input is not ported to the "
-            "PyTorch package yet (ROADMAP.md M5)")
     methods = ("auto", "lbfgs", "adam", "scipy-bfgs", "scipy-cg")
     if method not in methods:
         raise ValueError(f"fit(method={method!r}): one of {methods}")
     mean = mean if mean is not None else ZeroMean(dim=x.shape[-1])
+    batched = x.ndim > 2
+    if batched and (kfold > 1 or approximation is not None
+                    or optimize_inducing):
+        raise ValueError(
+            "fit(): the k-fold and approximation objectives take one "
+            f"instance, x [n, d]; got batched input of shape {tuple(x.shape)}")
     if xrange is None:
-        xrange = torch.stack([x.min(dim=0).values, x.max(dim=0).values],
+        rows = x.reshape(-1, x.shape[-1])
+        xrange = torch.stack([rows.min(dim=0).values, rows.max(dim=0).values],
                              dim=-1).cpu().numpy()
     n = x.shape[-2]
+    batch = int(np.prod(x.shape[:-2]))
     dtype = x.dtype
     # the iterative route would have to clamp a fixed noise this small,
     # silently solving another model; it has no k-fold or approximation
@@ -491,12 +499,15 @@ def fit(
         ("optimize_inducing", optimize_inducing),
         ("a fixed noise < 1e-6", not optimize_noise and float(noise) < 1e-6),
         ("the k-fold objective", kfold > 1),
-        ("a custom gram_fn", gram_fn is not None)) if given]
+        ("a custom gram_fn", gram_fn is not None),
+        ("batched (instance-stacked) input", batched)) if given]
     iterative_ok = not blockers
     if kfold > 1 and generator is None:
         raise ValueError("fit(kfold>1) needs a generator for the fold split")
-    # the k-fold objective holds one more [n, n] per fold
-    dense_bytes = (3 + (kfold if kfold > 1 else 0)) * n * n * x.element_size()
+    # the k-fold objective holds one more [n, n] per fold, and a batch one
+    # working set per instance
+    dense_bytes = ((3 + (kfold if kfold > 1 else 0)) * batch * n * n
+                   * x.element_size())
     dense_feasible = (approximation is not None
                       or dense_bytes <= config.dense_hbm_budget)
     route_iterative = False

@@ -21,6 +21,13 @@ def add_diag(K: torch.Tensor, v) -> torch.Tensor:
     return K + v[..., None, None] * eye if v.ndim else K + v * eye
 
 
+def cholesky_or_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN where the factorisation fails (as
+    ``jnp.linalg.cholesky``); no host read, differentiable."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+
+
 def effective_jitter(K: torch.Tensor, jitter, eps_factor: float = 100.0):
     """Dtype-aware jitter floor: max(jitter, eps_factor·eps·mean diag(K)).
 

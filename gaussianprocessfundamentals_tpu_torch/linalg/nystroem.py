@@ -36,6 +36,7 @@ import torch
 from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import (
     LOG_2PI,
     add_diag,
+    cholesky_or_nan,
     effective_jitter,
 )
 from gaussianprocessfundamentals_tpu_torch.ops.cuda_dense_gram import (
@@ -51,13 +52,6 @@ class NystroemState(NamedTuple):
     A: torch.Tensor  # K_nm·L_mm⁻ᵀ ("Φᵀ", [n, m]): K̂ = A·Aᵀ
     L_core: torch.Tensor  # chol(σ²I_m + AᵀA)
     noise: torch.Tensor
-
-
-def _cholesky(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor, NaN where the factorisation fails (as
-    ``jnp.linalg.cholesky``); no host read."""
-    L, info = torch.linalg.cholesky_ex(A)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
 
 
 def _factors(A: torch.Tensor) -> torch.Tensor:
@@ -89,10 +83,10 @@ def _f64(t) -> torch.Tensor:
 
 def _factor(K_nm, K_mm, noise, jit) -> NystroemState:
     K_nm, K_mm = K_nm.to(_F64), K_mm.to(_F64)
-    L_mm = _cholesky(add_diag(K_mm, jit.to(_F64)))
+    L_mm = cholesky_or_nan(add_diag(K_mm, jit.to(_F64)))
     A = torch.linalg.solve_triangular(L_mm.mT, K_nm, upper=True, left=False)
     noise = _f64(noise).to(K_nm.device)
-    L_core = _cholesky(add_diag(A.T @ A, noise))
+    L_core = cholesky_or_nan(add_diag(A.T @ A, noise))
     return NystroemState(K_nm, L_mm, A, L_core, noise)
 
 

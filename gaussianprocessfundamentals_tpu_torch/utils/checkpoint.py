@@ -11,7 +11,9 @@ either package loads in the other. Change points' ``locations`` are leaves
 like any other (``k:['locations']``), and a Partition's model is part of
 its AST. :func:`stacked_params_from_numpy` reads the JAX package's
 per-segment parameters stacked on a leading axis (what its
-``fit_segments_vmapped`` returns) into the port's tree of the same layout.
+``fit_segments_vmapped`` returns) into the port's tree of the same layout;
+:func:`svgp_params_from_numpy` and :func:`rff_state_from_numpy` carry its
+SVGP parameters and random-feature states across.
 """
 from __future__ import annotations
 
@@ -103,6 +105,33 @@ def params_from_numpy(module, params: dict, device=None, dtype=None):
     module."""
     return module.set_params(
         _like(module.get_params(), tree_from_numpy(params, device, dtype)))
+
+
+def _tensor(a, device=None, dtype=None) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), device=device, dtype=dtype)
+
+
+def svgp_params_from_numpy(kernel, params, device=None, dtype=None):
+    """The JAX package's ``SVGPParams`` (numpy or JAX arrays; its
+    ``kernel_u`` a params tree or flat keys as :func:`tree_from_numpy`
+    takes) as the port's :class:`..models.svgp.SVGPParams`, ``kernel_u``
+    shaped like ``kernel.positivity()``. Nothing is installed."""
+    from gaussianprocessfundamentals_tpu_torch.models.svgp import SVGPParams
+
+    return SVGPParams(
+        _like(kernel.positivity(),
+              tree_from_numpy(params.kernel_u, device, dtype)),
+        *(_tensor(getattr(params, f), device, dtype)
+          for f in ("z", "q_mu", "q_sqrt", "log_noise")))
+
+
+def rff_state_from_numpy(state, device=None, dtype=None):
+    """The JAX package's ``RFFState`` (omega [D, d], phase [D], scale) as
+    the port's :class:`..models.rff.RFFState`."""
+    from gaussianprocessfundamentals_tpu_torch.models.rff import RFFState
+
+    return RFFState(*(_tensor(getattr(state, f), device, dtype)
+                      for f in ("omega", "phase", "scale")))
 
 
 def _flatten(tree) -> dict:

@@ -808,3 +808,116 @@ def test_gram_fn_with_k5_evaluates_the_nll_but_not_its_gradient(cuda):
     u["kernel"]["lengthscale"].requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward-only"):
         nll(u).backward()
+
+
+def _fitted_svgp(kind, cuda, steps=20):
+    """A short SVGP fit on the card: (kernel, params, x)."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.rand(3000, 1, generator=g).to(cuda)
+    y = torch.sin(12 * x[:, 0]) + 0.1 * torch.randn(3000, generator=g).to(cuda)
+    leaf = (gpt.SquaredExponentialKernel if kind == "se"
+            else gpt.Matern52Kernel)
+    k = leaf(scaled=True).to(cuda)
+    params, _ = gpt.fit_svgp(
+        k, x, y, m=64, steps=steps, batch_size=512,
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    return k, params, x
+
+
+@pytest.mark.parametrize("kind,wrapper", [("se", "se_gram"),
+                                          ("mat52", "matern_gram")])
+def test_svgp_predict_launches_two_dense_grams(cuda, kind, wrapper):
+    """``svgp_predict`` builds K_mm (+ its jitter floor) and K_mx with one
+    K5 (SE) or K6 (Matérn-5/2 at d = 1) launch each, and agrees with the
+    CPU float64 predictive at the same parameters and K_mm jitter (the
+    float32 floor, 2000·eps·mean diag, is part of the model: it moves μ by
+    up to 70% of its max in float64): μ within 1e-3·max|μ|, var within
+    5e-2·max|var| (float32 against float64, as the dense posterior's
+    checks)."""
+    from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import (
+        effective_jitter_of_diag,
+    )
+    from gaussianprocessfundamentals_tpu_torch.models.svgp import SVGPParams
+
+    k, params, x = _fitted_svgp(kind, cuda)
+    xt = torch.linspace(0, 1, 200, device=cuda)[:, None]
+    fn = getattr(cuda_dense_gram, wrapper)
+    before = _kernel_launches(), fn.launches
+    mu, var = gpt.svgp_predict(k, params, xt)
+    assert (_kernel_launches(), fn.launches) == (before[0], before[1] + 2)
+    p64 = SVGPParams(
+        {n: t.double().cpu() for n, t in params.kernel_u.items()},
+        *(t.double().cpu() for t in params[1:]))
+    k64 = copy.deepcopy(k).double().cpu()
+    floor = float(effective_jitter_of_diag(k.diag(params.z), 1e-8, 2000.0))
+    mu64, var64 = gpt.svgp_predict(k64, p64, xt.double().cpu(), jitter=floor)
+    assert bool((var >= 0).all())
+    assert float((mu.double().cpu() - mu64).abs().max()) <= (
+        1e-3 * float(mu64.abs().max()))
+    assert float((var.double().cpu() - var64).abs().max()) <= (
+        5e-2 * float(var64.abs().max()))
+
+
+@pytest.mark.parametrize("kind,wrapper", [("se", "se_gram"),
+                                          ("mat52", "matern_gram")])
+def test_pathwise_builds_launch_two_dense_grams(cuda, kind, wrapper):
+    """``pathwise_from_draws`` builds K + (σ² + jitter)·I and K_s with one
+    K5 or K6 launch each, and agrees with the same draws through the plain
+    versions on the CPU within 1e-3·max|ref| (σ² = 0.1 keeps the float32
+    CG's condition number ~1e4)."""
+    from gaussianprocessfundamentals_tpu_torch.models import rff
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.sort(torch.rand(800, 1, generator=g), dim=0).values
+    y = torch.sin(8 * x[:, 0]) + 0.3 * torch.randn(800, generator=g)
+    xt = torch.linspace(0, 1, 300)[:, None]
+    leaf = (gpt.SquaredExponentialKernel if kind == "se"
+            else gpt.Matern52Kernel)
+    k = leaf(scaled=True).set_params({"lengthscale": torch.tensor(0.2),
+                                      "variance": torch.tensor(1.0)})
+    state = rff.rff_init(k, 1, 512, g)
+    w = torch.randn(512, 8, generator=g)
+    eps = torch.randn(8, 800, generator=g)
+    ref = rff.pathwise_from_draws(k, x, y, xt, 0.1, state, w, eps,
+                                  max_iters=100)
+    kc = copy.deepcopy(k).to(cuda)
+    fn = getattr(cuda_dense_gram, wrapper)
+    before = _kernel_launches(), fn.launches
+    got = rff.pathwise_from_draws(
+        kc, x.to(cuda), y.to(cuda), xt.to(cuda), 0.1,
+        rff.RFFState(*(t.to(cuda) for t in state)), w.to(cuda),
+        eps.to(cuda), max_iters=100)
+    assert (_kernel_launches(), fn.launches) == (before[0], before[1] + 2)
+    assert float((got.cpu() - ref).abs().max()) <= (
+        1e-3 * float(ref.abs().max()))
+
+
+def test_svgp_adam_step_makes_no_host_read(cuda):
+    """Three ``fit_svgp`` steps (minibatch drawn on the card, ELBO, guarded
+    gradient, Adam) under torch.cuda.set_sync_debug_mode("error"), after
+    two warm-up steps; one of them on a minibatch whose loss is NaN."""
+    from gaussianprocessfundamentals_tpu_torch.models import svgp
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand(5000, 1, generator=g).to(cuda)
+    y = torch.sin(12 * x[:, 0]).contiguous()
+    k = gpt.SquaredExponentialKernel(scaled=True).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params, opt = svgp.svgp_adam_init(
+        svgp.init_svgp_params(k, x, 128, gen), 1e-2)
+    y_nan = torch.full_like(y, float("nan"))
+
+    def step(yy):
+        idx = torch.randint(0, 5000, (1024,), generator=gen, device=cuda)
+        return svgp.svgp_adam_step(k, params, opt, x[idx], yy[idx], 5000)
+
+    hist = [step(y), step(y)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hist += [step(y), step(y_nan), step(y)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    h = torch.stack(hist).cpu()
+    assert bool(torch.isnan(h[3])) and bool(torch.isfinite(h[[0, 1, 2, 4]]).all())
+    assert all(bool(torch.isfinite(t).all()) for t in svgp.svgp_leaves(params))

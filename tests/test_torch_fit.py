@@ -314,8 +314,13 @@ def test_fit_routing_and_what_is_not_ported():
     # the k-fold objective is ported; its fold split needs a generator
     with pytest.raises(ValueError, match="generator"):
         gpt.fit(k, xt, yt, kfold=3)
-    with pytest.raises(NotImplementedError, match="batched"):
-        gpt.fit(k, xt[None], yt[None])
+    # batched input fits one shared parameter set; its k-fold split is not
+    # defined (the JAX package fails on the shapes)
+    res = gpt.fit(k, torch.stack([xt, xt]), torch.stack([yt, -yt]))
+    assert np.isfinite(res.nll_post) and res.nll_post <= res.nll_pre
+    with pytest.raises(ValueError, match="one instance"):
+        gpt.fit(k, xt[None], yt[None], kfold=3,
+                generator=torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="method"):
         gpt.fit(k, xt, yt, method="newton")
     # a dense set over the budget goes to the iterative route, with a warning

@@ -70,6 +70,23 @@ from gaussianprocessfundamentals_tpu_torch.utils.toeplitz_oracle import (
     se_grid_posterior_oracle)
 _, var_o, rel_o = se_grid_posterior_oracle(
     500, 0.05, 1e-2, np.array([0.3, 0.6]), np.sin(np.linspace(0, 3, 500)))
+# SVGP, pathwise draws through random Fourier features, the kernel search
+# and a batched (instance-stacked) fit
+xt_, yt_ = torch.from_numpy(x), torch.from_numpy(y)
+sk = gpt.SquaredExponentialKernel(scaled=True)
+sp, shist = gpt.fit_svgp(sk, xt_, yt_, m=16, steps=3, batch_size=64,
+                         generator=torch.Generator().manual_seed(0))
+smu, svar = gpt.svgp_predict(sk, sp, xt_[:20])
+pk = gpt.params_from_numpy(gpt.Matern52Kernel(scaled=True), {
+    "lengthscale": np.float32(0.2), "variance": np.float32(1.0)})
+paths = gpt.pathwise_posterior_samples(
+    pk, xt_, yt_, xt_[:20], 1e-2, torch.Generator().manual_seed(0),
+    num_samples=4, num_features=64, max_iters=20)
+found = gpt.greedy_kernel_search(
+    xt_[:60], yt_[:60], base_kernels=(gpt.SquaredExponentialKernel(scaled=True),),
+    max_depth=0, fit_kwargs={"steps": 3})
+bfit = gpt.fit(gpt.SquaredExponentialKernel(), torch.stack([xt_[:40], xt_[40:80]]),
+               torch.stack([yt_[:40], yt_[40:80]]), method="adam", steps=3)
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
@@ -87,7 +104,11 @@ print(json.dumps({
                    and torch.isfinite(post3.mean).all() and torch.isfinite(post3.var).all()
                    and bool(np.isfinite(ski.nll_post)) and bool(np.isfinite(bfgs.nll_post))
                    and torch.isfinite(noises).all() and torch.isfinite(finals).all()
-                   and bool(np.isfinite(var_o).all()) and rel_o < 1e-10),
+                   and bool(np.isfinite(var_o).all()) and rel_o < 1e-10
+                   and torch.isfinite(shist).all() and torch.isfinite(smu).all()
+                   and torch.isfinite(svar).all() and torch.isfinite(paths).all()
+                   and bool(np.isfinite(found.score))
+                   and bool(np.isfinite(bfit.nll_post))),
     "fit_steps": len(res.history) + len(res2.history),
 }))
 """
@@ -100,7 +121,9 @@ def test_port_imports_and_serves_without_jax():
     likelihood on the dense route (K5 + K6 plain), posterior draws, a
     k-fold fit of a ChangePoint kernel, and the approximation slice: a
     Nyström fit and its projected-process posterior, an SKI fit, a SciPy
-    BFGS fit, independent batched fits and the Toeplitz oracle."""
+    BFGS fit, independent batched fits and the Toeplitz oracle; a 3-step
+    SVGP fit and its predictive, pathwise draws through random Fourier
+    features, a one-base kernel search and a batched fit."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests

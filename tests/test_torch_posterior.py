@@ -155,13 +155,14 @@ def test_facade_refuses_what_this_slice_does_not_serve():
         tgp.posterior(np.zeros((3, 1)))
     with pytest.raises(ValueError, match="training data"):
         tgp.fit()
-    # SciPy's optimisers are served (fit.scipy_run); batched
-    # (instance-stacked) input is not
+    # SciPy's optimisers are served (fit.scipy_run), and batched
+    # (instance-stacked) input
     x = np.linspace(0, 1, 12)[:, None]
     res = tgp.fit(x, np.sin(6 * x[:, 0]), method="scipy-bfgs")
     assert np.isfinite(res.nll_post) and res.nll_post <= res.nll_pre
-    with pytest.raises(NotImplementedError, match="batched"):
-        tgp.fit(np.zeros((2, 3, 1)), np.zeros((2, 3)))
+    res = tgp.fit(np.stack([x, x]),
+                  np.stack([np.sin(6 * x[:, 0]), np.cos(6 * x[:, 0])]))
+    assert np.isfinite(res.nll_post) and res.nll_post <= res.nll_pre
     tgp.set_data(np.zeros((3, 1)), np.zeros(3))
     with pytest.raises(ValueError, match="method"):
         tgp.posterior(np.zeros((2, 1)), method="cholesky")

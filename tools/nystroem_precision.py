@@ -36,7 +36,10 @@ def main() -> None:
     import gaussianprocessfundamentals_tpu_torch as gpt
     from gaussianprocessfundamentals_tpu_torch.fit.fit import default_inducing
     from gaussianprocessfundamentals_tpu_torch.linalg import nystroem as ny
-    from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import add_diag
+    from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import (
+        add_diag,
+        cholesky_or_nan,
+    )
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=100_000)
@@ -65,10 +68,10 @@ def main() -> None:
 
     def float32_algebra(k, noise):
         K_mm = k.gram(z, z)
-        L_mm = ny._cholesky(add_diag(K_mm, ny.nystroem_jitter(K_mm, 1e-8)))
+        L_mm = cholesky_or_nan(add_diag(K_mm, ny.nystroem_jitter(K_mm, 1e-8)))
         A = torch.linalg.solve_triangular(L_mm.mT, k.gram(x, z), upper=True,
                                           left=False)
-        L_core = ny._cholesky(add_diag(A.T @ A, noise))
+        L_core = cholesky_or_nan(add_diag(A.T @ A, noise))
         B = torch.linalg.solve_triangular(L_mm.mT, k.gram(xt, z),
                                           upper=True, left=False)
         w = torch.cholesky_solve((A.T @ y)[:, None], L_core)[:, 0]
