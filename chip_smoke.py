@@ -6,7 +6,9 @@ variance gate, a fit and posterior at N = 200k, where a float32 K cannot
 exist on the card, and the approximations (Nyström with its
 projected-process posterior through K5/K6, the SKC bounds, SKI); then SVGP
 at N = 100k and pathwise posterior draws at N = 20k through K5/K6, the
-greedy kernel search on the Mauna Loa record, and a batched fit.
+greedy kernel search on the Mauna Loa record, and a batched fit; then
+BASELINE config 3, NUTS over a Matérn-5/2 GP's hyperparameters with 8
+chains on a batch axis, and the metric factory and data layer on the card.
 
     python3 chip_smoke.py
 
@@ -183,13 +185,30 @@ non-zero):
     posterior (``pathwise_gates``: limits and why in ``PERF.md`` §5), K6
     held against its plain version at both shapes;
 30. example 10: ``greedy_kernel_search`` on ``data/d2_mauna_loa.csv``
-    (min-max normalised, the first 80% for training), max_depth=2,
-    restarts=2, steps=150, in float64: BIC trace, structure, candidates,
-    wall, held-out MSE through the facade's posterior; the score ≤ the
-    best base kernel's, every BIC finite;
+    (read by the port's ``load_named``, min-max normalised, the first 80%
+    for training), max_depth=2, restarts=2, steps=150, in float64: BIC
+    trace, structure, candidates, wall, held-out MSE through the facade's
+    posterior; the score ≤ the best base kernel's, every BIC finite;
 31. 8 copies of one 4,000-row problem through ``fit(method="auto")`` as
     batched input against ``fit`` on the one problem, in float64:
-    parameters and NLL within 1e-3 relative, wall and peak memory.
+    parameters and NLL within 1e-3 relative, wall and peak memory;
+32. BASELINE config 3 (``benchmarks/run_all.py:164-260``):
+    ``nuts_chains`` of 8 chains over the Matérn-5/2~s hyperposterior of
+    ``synth_se(n=1000, 0.2, 0.1, seed=0)`` (``make_stacked_nll``, the
+    N(0, 3²) prior on the unconstrained leaves) in float64, from the
+    defaults + 0.1·N(0, 1), 300 warmup transitions and 300 draws at
+    max_depth 6, then 2 ``nuts_chains_resume`` segments of 300 (r4 ran 4;
+    cut for the time limit, as ``hmc_chains``' draws): samples/s
+    of both, accept, divergences, leapfrogs per draw, host reads per
+    transition (the synchronisations counted under
+    ``set_sync_debug_mode("warn")`` against the doublings), split-R̂ and
+    ESS per parameter, peak memory; gated (``NUTS_*``), and held against
+    ``hmc_chains`` (300 + 300, 16 leapfrogs) on the same target; one
+    transition on the card against the CPU with the same draws; one under
+    ``gpt.trace``: device busy share, launches and ms per leapfrog;
+33. ``compat.get_metric`` for every family at n = 4,096 in float32 against
+    float64 on the card (``M11_RTOL``), a ``DataInput`` split and
+    ``subset_smoothed_grid`` on the card against the CPU.
 
 Each path's launch counts (all six kernels) are set to 0 just before it
 is driven and read just after. The second-to-last line, after the card's
@@ -201,7 +220,8 @@ phase 19, the segmented and partitioned paths of phases 20 and 21, the
 ChangePoint posterior of phase 23, the 50k gate of phase 24, the 200k fit
 and posterior of phase 25, the Nyström posteriors of phase 26, the SVGP
 predict of phase 28, the pathwise draws of phase 29, the search of phase
-30 and the batched fit of phase 31), the largest absolute and relative
+30, the batched fit of phase 31, the NUTS and HMC chains of phase 32 and
+the metrics of phase 33), the largest absolute and relative
 differences from the plain version over the checks (relative: K1's, K3's,
 K5's and K6's max|diff| / max|ref|, K2's per scalar, K4's per parameter
 array), the kernel's and the plain version's times at the main path's
@@ -866,6 +886,22 @@ def phase_profile(x, y) -> None:
     _profile_step(_fit_model, x, y, "profile")
 
 
+def _device_busy(prof, skip=()) -> tuple:
+    """(CUDA kernel events, the union of their intervals in µs) of a
+    ``torch.profiler`` run; ``skip`` names ranges labelled on the device
+    timeline (``record_function``), which are not kernels."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.name not in skip)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return len(spans), busy
+
+
 def _profile_step(make_gp, x, y, tag: str) -> None:
     """One fit step under torch.profiler: device time by kernel, and the
     union of the device's kernel intervals over the step's wall time."""
@@ -878,13 +914,7 @@ def _profile_step(make_gp, x, y, tag: str) -> None:
         make_gp().fit(x, y, **kw)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, -np.inf
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    n_kernels, busy = _device_busy(prof)
     by_kernel = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -892,7 +922,7 @@ def _profile_step(make_gp, x, y, tag: str) -> None:
                 e.time_range.end - e.time_range.start)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     log(f"[{tag}] one fit step at N={N_MAIN}: wall {wall_us / 1e3:.1f} ms, "
-        f"{len(spans)} device kernels, device busy {busy / 1e3:.1f} ms "
+        f"{n_kernels} device kernels, device busy {busy / 1e3:.1f} ms "
         f"({100 * busy / wall_us:.1f}% of wall, idle "
         f"{100 * (1 - busy / wall_us):.1f}%)")
     for name, us in top:
@@ -2748,16 +2778,16 @@ def phase_pathwise() -> dict:
 
 
 def _mauna_csv():
-    """``data/d2_mauna_loa.csv`` read with numpy, x and y min-max
-    normalised, the first 80% for training and the rest held out, float64
-    on the card."""
-    raw = np.loadtxt(Path(__file__).resolve().parent / "data"
-                     / "d2_mauna_loa.csv", delimiter=",", skiprows=1)
-    lo, hi = raw.min(0), raw.max(0)
-    z = torch.tensor((raw - lo) / (hi - lo), dtype=torch.float64,
-                     device="cuda")
-    cut = int(0.8 * len(z))
-    return z[:cut, :1], z[:cut, 1], z[cut:, :1], z[cut:, 1]
+    """``data/d2_mauna_loa.csv`` through the port's loader (x and y min-max
+    normalised over every row, no shuffle), the first 80% for training and
+    the rest held out, float64 on the card."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    di = gpt.load_named("mauna_loa", test_ratio=0.0, dtype=torch.float64,
+                        device="cuda")
+    cut = int(0.8 * di.n_train)
+    x, y = di.x_train, di.y_train
+    return x[:cut], y[:cut], x[cut:], y[cut:]
 
 
 def phase_search() -> dict:
@@ -2863,6 +2893,416 @@ def phase_batched_fit() -> dict:
     return {"counts": counts}
 
 
+# --- BASELINE config 3 (phase 32) and M11 on the card (phase 33) -----------
+
+# benchmarks/run_all.py:164-260 (bench_nuts): n = 1,000, 8 chains from the
+# defaults + 0.1·N(0, 1), 300 warmup transitions and 300 draws at
+# max_depth 6, then resumed segments of 300. Cut for the time limit: 2
+# resumed segments, not r4's 4 (900 draws a chain, not 1,500), and
+# hmc_chains' 600 draws to 300 (uncut, the phase took 725 s on the card
+# before the stacked Gram was vmapped; cut, it takes ~330 s; PERF.md §5)
+N_NUTS, C_NUTS, NUTS_DEPTH = 1_000, 8, 6
+NUTS_WARMUP, NUTS_SEG, NUTS_RESUMED = 300, 300, 2
+NUTS_PRIOR_VAR = 9.0  # the N(0, 3²) prior on the unconstrained leaves
+HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 300, 300, 16
+NUTS_DIV_MAX, NUTS_ACCEPT = 0.05, (0.6, 0.95)
+NUTS_RHAT_MAX, NUTS_ESS_MIN, NUTS_MAX_LAG = 1.1, 100.0, 200
+NUTS_NOISE_BAND = (0.007, 0.014)  # posterior mean of σ² (truth 0.01)
+NUTS_PARAMS = ("log lengthscale", "log variance", "log noise")  # ravel order
+# what torch.cuda.set_sync_debug_mode("warn") says at each synchronisation
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# phase 33: the metric factory at n = 4,096 (σ² 0.1, SE~s ℓ 0.2), float32
+# against float64 on the card: the dense Cholesky LL (by Cholesky or CG)
+# and BIC carry the float32 factor's rounding, the O(nm²) families their
+# float32 Grams only (the algebra is float64)
+N_M11, M11_NOISE = 4_096, 0.1
+M11_RTOL = {"ll": 3e-3, "ll_cg": 3e-3, "bic": 3e-3, "nystroem": 3e-4,
+            "skc_lower": 3e-4, "skc_upper": 3e-4, "ski": 3e-4, "mse": 3e-4}
+
+
+def _nuts_data(device="cuda", dtype=torch.float64):
+    """Config 3's data: ``synth_se(n=1000, 0.2, 0.1, seed=0)``."""
+    from gaussianprocessfundamentals_tpu_torch.data.datasets import synth_se
+
+    x, y = synth_se(n=N_NUTS, lengthscale=0.2, noise_sd=0.1, seed=0)
+    return (torch.tensor(x, dtype=dtype, device=device),
+            torch.tensor(y, dtype=dtype, device=device))
+
+
+def _nuts_target(device="cuda", dtype=torch.float64):
+    """Config 3's log posterior over a stacked tree of C chains (the dense
+    Matérn-5/2~s NLL of ``synth_se(n=1000, 0.2, 0.1, seed=0)`` with the
+    noise, through ``make_stacked_nll``, and the N(0, 3²) prior on every
+    unconstrained leaf) and the default start, on ``device``."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.fit.fit import init_uparams
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+
+    x, y = _nuts_data(device, dtype)
+    kern = gpt.Matern52Kernel(scaled=True).to(device)
+    nll = gpt.make_stacked_nll(kern, gpt.ZeroMean(), x, y,
+                               optimize_noise=True)
+
+    def logprob(u):
+        leaves = tree_leaves(u)
+        C = leaves[0].shape[0]
+        return -nll(u) - 0.5 * sum((l ** 2).reshape(C, -1).sum(-1)
+                                   for l in leaves) / NUTS_PRIOR_VAR
+
+    u0 = init_uparams(kern, gpt.ZeroMean(), [[0.0, 1.0]], N_NUTS,
+                      dtype=dtype, optimize_noise=True, device=device)
+    return logprob, u0
+
+
+def _chain_stats(flat) -> dict:
+    """Per parameter of flat draws [C, S, 3]: pooled mean and sd, split-R̂,
+    ESS (max_lag 200, as run_all.py) and se = sd/√ESS."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    out = {}
+    for i, name in enumerate(NUTS_PARAMS):
+        t = flat[..., i].double().cpu()
+        ess = float(gpt.effective_sample_size(t, max_lag=NUTS_MAX_LAG))
+        sd = float(t.std())
+        out[name] = {"mean": float(t.mean()), "sd": sd, "ess": ess,
+                     "rhat": float(gpt.potential_scale_reduction(t)),
+                     "se": sd / np.sqrt(ess)}
+    return out
+
+
+def _nuts_gram(q) -> torch.Tensor:
+    """Kₙ = K + (σ² + jitter)·I of config 3 at the chains' positions q
+    [C, 3] (the matrix whose inverse the NLL's backward forms)."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
+    from gaussianprocessfundamentals_tpu_torch.models.segmented import (
+        stacked_gram,
+    )
+
+    x, _ = _nuts_data(q.device, q.dtype)
+    kern = gpt.Matern52Kernel(scaled=True).to(q.device)
+    K = stacked_gram(kern, {"lengthscale": torch.exp(q[:, 0]),
+                            "variance": torch.exp(q[:, 1])},
+                     x.expand(q.shape[0], *x.shape))
+    return chol.noised(K, torch.exp(q[:, 2]), 1e-8)
+
+
+def _tri_kn_inv(L):
+    from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import (
+        tri_inverse,
+    )
+
+    L_inv = tri_inverse(L)
+    return L_inv.mT @ L_inv
+
+
+def phase_nuts() -> dict:
+    """BASELINE config 3 (``benchmarks/run_all.py:164-260``):
+    ``nuts_chains`` of 8 chains over the Matérn-5/2~s hyperposterior at
+    n = 1,000 in float64, then ``NUTS_RESUMED`` ``nuts_chains_resume``
+    segments; the
+    host's synchronisations counted (``set_sync_debug_mode("warn")``)
+    against the lock-step doublings; the gates of ``PERF.md`` §2 (finite
+    log-probs, divergences, accept, split-R̂, ESS, σ², NUTS against
+    ``hmc_chains``); one transition on the card against the CPU with the
+    same draws; one transition under ``gpt.trace`` (torch.profiler)."""
+    import tempfile
+    import warnings
+
+    from torch.autograd import DeviceType
+
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.mcmc import nuts as tnuts
+    from gaussianprocessfundamentals_tpu_torch.mcmc.hmc import value_and_grad
+    from gaussianprocessfundamentals_tpu_torch.utils.profiling import (
+        named_scope,
+    )
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import (
+        ravel_tree,
+        tree_map,
+    )
+
+    logprob, u0 = _nuts_target()
+    flat0, unravel = ravel_tree(u0)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    q0s = unravel(flat0 + 0.1 * torch.randn(
+        (C_NUTS, flat0.numel()), generator=gen, dtype=flat0.dtype,
+        device="cuda"))
+    # why float64: the same log-probs in float32 (the sampler's energy
+    # errors, which decide acceptance and divergence, are O(0.1-1))
+    logprob32, _ = _nuts_target(dtype=torch.float32)
+    lp64 = logprob(q0s)
+    lp32 = logprob32(tree_map(lambda t: t.float(), q0s))
+    f32_err = float((lp32.double() - lp64).abs().max())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t_all = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = gpt.nuts_chains(logprob, q0s, gen, num_samples=NUTS_SEG,
+                                  num_warmup=NUTS_WARMUP,
+                                  max_depth=NUTS_DEPTH)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    dt_first = time.perf_counter() - t_all
+    syncs = sum(str(w.message).startswith(SYNC_WARNING) for w in caught)
+    segs, seg_s = [res], []
+    q_last = tree_map(lambda l: l[:, -1], res.samples)
+    for _ in range(NUTS_RESUMED):
+        t0 = time.perf_counter()
+        r = gpt.nuts_chains_resume(logprob, q_last, gen, NUTS_SEG,
+                                   res.step_size, res.inv_mass,
+                                   max_depth=NUTS_DEPTH)
+        torch.cuda.synchronize()
+        seg_s.append(time.perf_counter() - t0)
+        segs.append(r)
+        q_last = tree_map(lambda l: l[:, -1], r.samples)
+    wall = time.perf_counter() - t_all
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    draws = torch.cat([ravel_tree(s.samples, batch_ndim=2)[0] for s in segs],
+                      dim=1)  # [C, 900, 3]
+    cat = {k: torch.cat([getattr(s, k) for s in segs], dim=1).cpu()
+           for k in ("accept_stat", "diverging", "num_steps", "log_probs")}
+    stats = _chain_stats(draws)
+    transitions = NUTS_WARMUP + NUTS_SEG * (1 + NUTS_RESUMED)
+    doublings = sum(s.doublings for s in segs)
+    accept = float(cat["accept_stat"].mean())
+    div = float(cat["diverging"].double().mean())
+    noise = float(torch.exp(draws[..., 2]).mean())
+    sps_first = C_NUTS * NUTS_SEG / dt_first
+    sps_resumed = C_NUTS * NUTS_SEG / float(np.mean(seg_s))
+    log(f"[nuts] config 3: n={N_NUTS}, Matérn-5/2~s, {C_NUTS} chains, "
+        f"max_depth {NUTS_DEPTH}, float64 (the float32 log-probs at the "
+        f"starts differ by up to {f32_err:.3e}, against energy errors of "
+        f"O(0.1-1) that decide acceptance); warmup {NUTS_WARMUP} + "
+        f"{NUTS_SEG} draws: {dt_first:.2f} s, {sps_first:.1f} samples/s "
+        f"(warmup included, as run_all.py); {NUTS_RESUMED} resumed segments "
+        f"of {NUTS_SEG}: {[round(s, 2) for s in seg_s]} s, "
+        f"{sps_resumed:.1f} samples/s; wall {wall:.1f} s, peak "
+        f"{peak / 1e9:.3f} GB; launches {counts}")
+    log(f"[nuts] step sizes {[round(float(e), 4) for e in res.step_size]}; "
+        f"inverse mass (chain 0) "
+        f"{[round(float(v), 5) for v in res.inv_mass[0]]}; mean accept "
+        f"{accept:.4f}, divergences {int(cat['diverging'].sum())} of "
+        f"{cat['diverging'].numel()} ({100 * div:.2f}%), mean leapfrogs per "
+        f"draw {float(cat['num_steps'].mean()):.2f}; host reads: "
+        f"{doublings} doublings over {transitions} transitions "
+        f"({doublings / transitions:.2f} per transition); synchronisations "
+        f"counted in the first program {syncs} (its doublings "
+        f"{res.doublings})")
+    for name, s in stats.items():
+        log(f"[nuts] {name}: mean {s['mean']:.5f} sd {s['sd']:.5f} "
+            f"split-R̂ {s['rhat']:.4f} ESS {s['ess']:.1f} "
+            f"({C_NUTS} x {draws.shape[1]} draws)")
+    log(f"[nuts] posterior mean σ² (noise) {noise:.5f} (truth 0.01)")
+
+    # HMC on the same target, from the same starts
+    t0 = time.perf_counter()
+    hres = gpt.hmc_chains(logprob, q0s, gen, num_samples=HMC_DRAWS,
+                          num_warmup=HMC_WARMUP, num_leapfrog=HMC_LEAPFROG)
+    torch.cuda.synchronize()
+    dt_hmc = time.perf_counter() - t0
+    hstats = _chain_stats(ravel_tree(hres.samples, batch_ndim=2)[0])
+    agree = {}
+    for name in NUTS_PARAMS:
+        a, b = stats[name], hstats[name]
+        lim = 4.0 * np.hypot(a["se"], b["se"])
+        agree[name] = abs(a["mean"] - b["mean"]) <= lim
+        log(f"[nuts] hmc_chains {HMC_WARMUP} + {HMC_DRAWS}, {HMC_LEAPFROG} "
+            f"leapfrogs: {name} mean {b['mean']:.5f} (ESS {b['ess']:.1f}) "
+            f"against NUTS {a['mean']:.5f}: |diff| "
+            f"{abs(a['mean'] - b['mean']):.5f}, limit 4·√(se²+se²) {lim:.5f}")
+    log(f"[nuts] hmc_chains: {dt_hmc:.2f} s, mean accept "
+        f"{float(hres.accept_prob.mean()):.4f}, step sizes "
+        f"{[round(float(e), 4) for e in hres.step_size]}")
+
+    # one batched transition on the card and on the CPU, the same draws
+    q_card, unr = ravel_tree(q_last, batch_ndim=1)
+    logprob_cpu, _ = _nuts_target(device="cpu")
+    d_cpu = tnuts.generator_draws(torch.Generator().manual_seed(11),
+                                  q_card.cpu(), NUTS_DEPTH)(0)
+    outs = {}
+    for tag, dev, lpf in (("card", "cuda", logprob),
+                          ("cpu", "cpu", logprob_cpu)):
+        q = q_card.to(dev)
+        lpg = value_and_grad(lpf, unr)
+        lp0, g0 = lpg(q)
+        outs[tag] = [t.cpu() if isinstance(t, torch.Tensor) else t
+                     for t in tnuts.nuts_transition(
+                         lpg, NUTS_DEPTH,
+                         tnuts.NUTSDraws(*(t.to(dev) for t in d_cpu)), q, lp0,
+                         g0, res.step_size.to(dev), res.inv_mass.to(dev))]
+    q_err = float((outs["card"][0] - outs["cpu"][0]).abs().max())
+    same_steps = torch.equal(outs["card"][4], outs["cpu"][4])
+    same_div = torch.equal(outs["card"][5], outs["cpu"][5])
+    log(f"[nuts] one transition of {C_NUTS} chains, card against CPU "
+        f"(float64, same draws): n_steps {outs['card'][4].tolist()} / "
+        f"{outs['cpu'][4].tolist()}, diverging identical {same_div}, "
+        f"max|q diff| {q_err:.3e} (limit 1e-8)")
+
+    # one transition under the port's trace (torch.profiler)
+    lpg = value_and_grad(logprob, unr)
+    lp0, g0 = lpg(q_card)
+    d_card = tnuts.generator_draws(gen, q_card, NUTS_DEPTH)(0)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with gpt.trace(tmp) as prof:
+            t0 = time.perf_counter()
+            with named_scope("nuts_transition"):
+                out = tnuts.nuts_transition(lpg, NUTS_DEPTH, d_card, q_card,
+                                            lp0, g0, res.step_size,
+                                            res.inv_mass)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        trace_path = Path(tmp) / "trace.json"
+        trace_mb = trace_path.stat().st_size / 1e6
+        labelled = "nuts_transition" in trace_path.read_text()
+    n_kernels, busy = _device_busy(prof, skip={"nuts_transition"})
+    leapfrogs = 2 ** out[6] - 1  # lock step: every leaf of every doubling
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name != "nuts_transition":
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    log(f"[nuts] one transition under gpt.trace: {out[6]} doublings, "
+        f"{leapfrogs} batched leapfrogs, wall {wall_us / 1e3:.2f} ms "
+        f"({wall_us / 1e3 / leapfrogs:.3f} ms per leapfrog of {C_NUTS} "
+        f"chains), {n_kernels} device kernels ({n_kernels / leapfrogs:.1f} "
+        f"per leapfrog), device busy {busy / 1e3:.2f} ms "
+        f"({100 * busy / wall_us:.1f}% of wall); Chrome trace "
+        f"{trace_mb:.2f} MB, labelled {labelled}")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[nuts]   {us / 1e3:9.2f} ms  {name[:100]}")
+    # the backward's Kₙ⁻¹ at the chains' shape: torch.cholesky_inverse
+    # against linalg.cholesky.tri_inverse, and one whole leapfrog's lpg
+    Kn = _nuts_gram(q_card)
+    L = torch.linalg.cholesky(Kn)
+    ms = {"cholesky_inverse": _time_ms(lambda: torch.cholesky_inverse(L), 10),
+          "tri_inverse": _time_ms(lambda: _tri_kn_inv(L), 10),
+          "lpg": _time_ms(lambda: lpg(q_card), 10)}
+    inv_err = float((_tri_kn_inv(L) - torch.cholesky_inverse(L)).abs().max()
+                    / torch.cholesky_inverse(L).abs().max())
+    log(f"[nuts] Kₙ⁻¹ of {C_NUTS} x {N_NUTS}² float64 (CUDA events): "
+        f"torch.cholesky_inverse {ms['cholesky_inverse']:.3f} ms, "
+        f"L⁻ᵀL⁻¹ by tri_inverse {ms['tri_inverse']:.3f} ms (relative "
+        f"difference {inv_err:.2e}); log-prob and gradient of the {C_NUTS} "
+        f"chains {ms['lpg']:.3f} ms")
+
+    checks = {
+        "every log-prob finite": bool(torch.isfinite(cat["log_probs"]).all()),
+        f"divergences <= {NUTS_DIV_MAX:.0%}": div <= NUTS_DIV_MAX,
+        f"mean accept in {NUTS_ACCEPT}":
+        NUTS_ACCEPT[0] <= accept <= NUTS_ACCEPT[1],
+        f"max split-R̂ <= {NUTS_RHAT_MAX}":
+        max(s["rhat"] for s in stats.values()) <= NUTS_RHAT_MAX,
+        f"min ESS >= {NUTS_ESS_MIN}":
+        min(s["ess"] for s in stats.values()) >= NUTS_ESS_MIN,
+        f"posterior mean σ² in {NUTS_NOISE_BAND}":
+        NUTS_NOISE_BAND[0] <= noise <= NUTS_NOISE_BAND[1],
+        "NUTS and HMC agree on every posterior mean": all(agree.values()),
+        "one host read per doubling": syncs == res.doublings,
+        "card equals CPU": same_steps and same_div and q_err <= 1e-8,
+        "trace written and labelled": labelled,
+        "no kernel launched": sum(counts.values()) == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"config 3 (NUTS) checks failed: {failed}")
+    return {"counts": counts}
+
+
+def phase_m11() -> dict:
+    """M11 on the card: ``compat.get_metric`` for every family (LL without
+    an approximation, by CG, Nyström, SKC lower and upper, SKI; BIC; MSE)
+    at n = 4,096 in float32 against the same metric in float64 on the card,
+    within ``M11_RTOL``; a ``DataInput`` split and
+    ``subset_smoothed_grid`` on the card against the CPU (float64, the same
+    permutation). Phase 32's profiled transition ran through
+    ``profiling.trace``."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch import compat as C
+
+    x, y = gpt.synth_se(n=N_M11, lengthscale=0.2, noise_sd=0.1, seed=33)
+    MT, MA = C.MetricType, C.MatrixApproximations
+    cases = {
+        "ll": ((MT.LL,), "xy"),
+        "ll_cg": ((MT.LL, MA.NONE,
+                   C.NumericalMatrixHandlingType.LINEAR_CONJUGATE_GRADIENT),
+                  "xy"),
+        "nystroem": ((MT.LL, MA.BASIC_NYSTROEM), "z"),
+        "skc_lower": ((MT.LL, MA.SKC_LOWER_BOUND), "z"),
+        "skc_upper": ((MT.LL, MA.SKC_UPPER_BOUND), "z"),
+        "ski": ((MT.LL, MA.SKI), "grid"),
+        "bic": ((MT.BIC,), "xy"),
+        "mse": ((MT.MSE,), "split"),
+    }
+    vals, secs, counts = {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        k = gpt.params_from_numpy(
+            gpt.SquaredExponentialKernel(scaled=True),
+            {"lengthscale": np.float64(0.2), "variance": np.float64(1.0)},
+            device="cuda", dtype=dtype)
+        X = torch.tensor(x, dtype=dtype, device="cuda")
+        Y = torch.tensor(y, dtype=dtype, device="cuda")
+        extra = {"z": X[::16], "grid": torch.linspace(
+            float(X.min()), float(X.max()), 512, dtype=dtype,
+            device="cuda")[:, None]}
+        for name, (args, kind) in cases.items():
+            fn = C.get_metric(*args)
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "split":
+                v = fn(k, X[::2], Y[::2], X[1::2], Y[1::2], M11_NOISE)
+            elif kind == "xy":
+                v = fn(k, X, Y, M11_NOISE)
+            else:
+                v = fn(k, X, Y, extra[kind], M11_NOISE)
+            v = float(v)
+            secs.setdefault(name, []).append(time.perf_counter() - t0)
+            vals.setdefault(name, []).append(v)
+            if dtype == torch.float32:
+                counts[name] = _launch_counts()
+    rel = {n: abs(a - b) / abs(b) for n, (a, b) in vals.items()}
+    for n, (a, b) in vals.items():
+        log(f"[m11] get_metric {n} n={N_M11} σ²={M11_NOISE}: float32 {a:.6f} "
+            f"({secs[n][0]:.3f} s) float64 {b:.6f} ({secs[n][1]:.3f} s): "
+            f"relative {rel[n]:.3e} (limit {M11_RTOL[n]:g}); float32 "
+            f"launches {counts[n]}")
+    total = {kk: sum(c[kk] for c in counts.values()) for kk in _wrappers()}
+
+    perm = np.random.default_rng(0).permutation(N_M11)
+    dis = {tag: gpt.DataInput.from_arrays(x, y, perm=perm,
+                                          dtype=torch.float64, device=dev)
+           for tag, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    same_split = all(torch.equal(getattr(dis["card"], a).cpu(),
+                                 getattr(dis["cpu"], a))
+                     for a in ("x_train", "y_train", "x_test", "y_test"))
+    subs = {dev: di.subset_smoothed_grid(512) for dev, di in dis.items()}
+    sub_err = float((subs["card"].y_train.cpu() - subs["cpu"].y_train)
+                    .abs().max())
+    sub_lim = 1e-12 * float(subs["cpu"].y_train.abs().max())
+    log(f"[m11] DataInput split {dis['card'].n_train} / "
+        f"{dis['card'].x_test.shape[0]} on the card equal to the CPU's "
+        f"{same_split}; subset_smoothed_grid(512): max|diff| {sub_err:.3e} "
+        f"(limit {sub_lim:.3e})")
+    checks = {f"{n} within {M11_RTOL[n]:g}": rel[n] <= M11_RTOL[n]
+              for n in rel}
+    checks["split equal"] = same_split
+    checks["smoothed grid equal"] = sub_err <= sub_lim
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"M11 checks failed: {failed}")
+    return {"counts": total}
+
+
 def _kernel_entry(name, source, replaces, by_path, worst, times) -> dict:
     ms, plain_ms, bound_ms, bound_by = times
     return {"name": name, "route": "cuda",
@@ -2906,6 +3346,8 @@ def main() -> None:
     pw = phase_pathwise()
     search = phase_search()
     batched = phase_batched_fit()
+    nuts = phase_nuts()
+    m11 = phase_m11()
     k1_worst = _worse(_worse(k1_worst, main_res["worst"]), fit_time["k1_worst"])
     k2_worst = _worse(k2_worst, fit_time["worst"])
     k3_worst = _worse(k3_worst, expr_time["k3_worst"])
@@ -2927,7 +3369,8 @@ def main() -> None:
              "nystroem_posterior_mat52": ny["counts"]["mat52"],
              "nystroem_posterior_m10000": ny["counts"][f"se_m{M_NY_RATIO}"],
              "svgp_predict": svgp_res["counts"], "pathwise": pw["counts"],
-             "search": search["counts"], "batched_fit": batched["counts"]}
+             "search": search["counts"], "batched_fit": batched["counts"],
+             "nuts_config3": nuts["counts"], "get_metric": m11["counts"]}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in _wrappers()}
     k1_widths = {1: main_res["times"][1], R_CG: fit_time["k1"],
                  256: main_res["times"][256]}

@@ -18,7 +18,11 @@ input with one parameter set shared by the instances. Beside the exact GP: SVGP 
 ``svgp_predict``, the minibatch and collapsed ELBOs), random-Fourier-
 feature prior draws and pathwise posterior samples
 (``pathwise_posterior_samples``), and a greedy BIC search over kernel
-expressions (``greedy_kernel_search``). On the GPU the work runs in
+expressions (``greedy_kernel_search``); HMC and NUTS over the
+hyperparameters with the chains on a batch axis (``hmc_chains``,
+``nuts_chains`` on ``make_stacked_nll``, resumable with
+``nuts_chains_resume``; split-R̂ and ESS), and the reference's data,
+metric-factory (``compat``), profiling and plotting helpers. On the GPU the work runs in
 hand-written CUDA kernels: the dense route's Grams (and the Nyström posterior's) in
 ``csrc/dense_gram.cu`` (SE and Matérn leaves, K + (σ² + jitter)·I in one
 pass); above 40k rows, where K is never formed, Gram·V in
@@ -47,12 +51,23 @@ from gaussianprocessfundamentals_tpu_torch.config import (
     ChangePointGate,
     GPConfig,
 )
+from gaussianprocessfundamentals_tpu_torch import compat
+from gaussianprocessfundamentals_tpu_torch.data.datasets import (
+    BatchDataInput,
+    DataInput,
+    MinMaxNormalization,
+    load_csv,
+    load_named,
+    synth_mauna_loa,
+    synth_se,
+)
 from gaussianprocessfundamentals_tpu_torch.fit.fit import (
     FitResult,
     fit,
     fit_batch_independent,
     make_kfold_nll,
     make_nll,
+    make_stacked_nll,
 )
 from gaussianprocessfundamentals_tpu_torch.kernels.base import (
     Kernel,
@@ -79,6 +94,20 @@ from gaussianprocessfundamentals_tpu_torch.kernels.partition import (
     BoxPartitioning,
     DistancePartitioning,
     Partition,
+)
+from gaussianprocessfundamentals_tpu_torch.mcmc.hmc import (
+    HMCResult,
+    effective_sample_size,
+    hmc,
+    hmc_chains,
+    potential_scale_reduction,
+)
+from gaussianprocessfundamentals_tpu_torch.mcmc.nuts import (
+    NUTSResult,
+    nuts,
+    nuts_chains,
+    nuts_chains_resume,
+    nuts_resume,
 )
 from gaussianprocessfundamentals_tpu_torch.means.functions import (
     ConstantMean,
@@ -127,6 +156,13 @@ from gaussianprocessfundamentals_tpu_torch.models.svgp import (
     svgp_elbo,
     svgp_predict,
 )
+from gaussianprocessfundamentals_tpu_torch.utils.auxiliary import (
+    SimilarityTransform,
+    deserialize_params,
+    serialize_params,
+    similarity_from_distance,
+    unique_rows,
+)
 from gaussianprocessfundamentals_tpu_torch.utils.checkpoint import (
     load,
     params_from_numpy,
@@ -135,6 +171,16 @@ from gaussianprocessfundamentals_tpu_torch.utils.checkpoint import (
     stacked_params_from_numpy,
     svgp_params_from_numpy,
     tree_from_numpy,
+)
+from gaussianprocessfundamentals_tpu_torch.utils.profiling import (
+    StepLogger,
+    enable_debug_checks,
+    timed,
+    trace,
+)
+from gaussianprocessfundamentals_tpu_torch.viz.plots import (
+    plot_posterior,
+    plot_prior_samples,
 )
 
 __version__ = "0.1.0"

@@ -114,6 +114,37 @@ def make_nll(kernel, mean: MeanFunction, x, y,
     return nll_fn
 
 
+def make_stacked_nll(kernel, mean: MeanFunction, x, y,
+                     config: GPConfig = DEFAULT_CONFIG,
+                     optimize_noise: bool = False,
+                     fixed_noise: float = 0.0) -> Callable:
+    """``nll(u) -> [C]``: :func:`make_nll` of C parameter sets at once, over
+    a stacked unconstrained tree ``u`` (every leaf [C, ...]; the MCMC
+    chains' positions). The C Grams of x [n, d] come from
+    :func:`..models.segmented.stacked_gram`, each differentiable from its
+    own slice, and the C NLLs are one batched Cholesky with noise [C];
+    the jitter floor is per Gram, so the C sets do not couple. The modules'
+    installed parameters come back after each call."""
+    from gaussianprocessfundamentals_tpu_torch.models.segmented import (
+        _stacked,
+        stacked_gram,
+    )
+
+    kpos, mpos = kernel.positivity(), mean.positivity()
+
+    def nll_fn(u):
+        C = tree_leaves(u["kernel"])[0].shape[0]
+        xs = x.expand(C, *x.shape)
+        K = stacked_gram(kernel, constrain(kpos, u["kernel"]), xs)
+        m = _stacked(mean, constrain(mpos, u["mean"]), mean.mean, xs)
+        noise = (torch.exp(u["log_noise"]) if optimize_noise
+                 else torch.full((C,), fixed_noise, dtype=x.dtype,
+                                 device=x.device))
+        return chol.nll(K, y - m, noise, config.jitter)
+
+    return nll_fn
+
+
 def make_kfold_nll(kernel, mean: MeanFunction, x, y, k: int, perm,
                    config: GPConfig = DEFAULT_CONFIG,
                    optimize_noise: bool = False, fixed_noise: float = 0.0,

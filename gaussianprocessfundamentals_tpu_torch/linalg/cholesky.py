@@ -80,15 +80,42 @@ def mll_from_state(state: CholState, y: torch.Tensor) -> torch.Tensor:
             - 0.5 * n * LOG_2PI)
 
 
+_TRI_LEAF = 128  # rows below which tri_inverse solves instead of recursing
+
+
+def tri_inverse(L: torch.Tensor) -> torch.Tensor:
+    """L⁻¹ of lower-triangular L [..., n, n] by 2 × 2 block recursion:
+    inv([[A, 0], [B, C]]) = [[A⁻¹, 0], [−C⁻¹·B·A⁻¹, C⁻¹]], the two diagonal
+    blocks as one batched call when their sizes match, and triangular
+    solves only on leaves of at most ``_TRI_LEAF`` rows. The work is
+    matrix products, where ``torch.cholesky_inverse`` runs batched
+    triangular solves on the card (``chip_smoke.py`` phase 32 times
+    both)."""
+    n = L.shape[-1]
+    if n <= _TRI_LEAF:
+        eye = torch.eye(n, dtype=L.dtype, device=L.device).expand_as(L)
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+    h = n // 2
+    A, B, C = L[..., :h, :h], L[..., h:, :h], L[..., h:, h:]
+    if n == 2 * h:
+        Ai, Ci = tri_inverse(torch.stack([A, C])).unbind(0)
+    else:
+        Ai, Ci = tri_inverse(A), tri_inverse(C)
+    top = torch.cat([Ai, torch.zeros_like(L[..., :h, h:])], dim=-1)
+    return torch.cat([top, torch.cat([-(Ci @ (B @ Ai)), Ci], dim=-1)],
+                     dim=-2)
+
+
 class _MLLCore(torch.autograd.Function):
     """MLL of N(y | 0, Kₙ) with the closed-form backward
 
         ∂mll/∂Kₙ = ½(ααᵀ − Kₙ⁻¹),   ∂mll/∂y = −α,
 
-    which costs one ``cholesky_inverse`` instead of differentiating through
-    the factorisation. A factorisation that fails (Kₙ not positive definite
-    at this precision) gives NaN, as the JAX package's does, so ``fit`` can
-    escalate the jitter; it is checked on the device, without a host read.
+    with Kₙ⁻¹ = L⁻ᵀL⁻¹ from :func:`tri_inverse` instead of differentiating
+    through the factorisation. A factorisation that fails (Kₙ not positive
+    definite at this precision) gives NaN, as the JAX package's does, so
+    ``fit`` can escalate the jitter; it is checked on the device, without a
+    host read.
     """
 
     @staticmethod
@@ -105,7 +132,8 @@ class _MLLCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         L, alpha = ctx.saved_tensors
-        Kn_inv = torch.cholesky_inverse(L)
+        L_inv = tri_inverse(L)
+        Kn_inv = L_inv.mT @ L_inv
         aa = alpha[..., :, None] * alpha[..., None, :]
         dKn = 0.5 * (aa - Kn_inv) * g[..., None, None]
         dy = -alpha * g[..., None]

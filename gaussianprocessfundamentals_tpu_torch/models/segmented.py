@@ -13,12 +13,12 @@ the SE and Matérn Gram kernels (K5, K6) build every segment's Gram in
 autograd on ``kernel.gram``.
 
 The JAX package vmaps a whole Adam run over the segment axis. The port
-writes that axis out: the S Grams, each differentiable from its own slice
-of the stacked parameters, are stacked into one [S, L, L] tensor, the S
-NLLs are one batched Cholesky (``cholesky_ex`` and ``cholesky_solve``
-batch), and one ``torch.optim.Adam`` steps the stacked parameters
-(:func:`adam_stacked`, which ``fit.fit_batch_independent`` shares). Adam
-acts elementwise, so each segment follows its own Adam run.
+vmaps the Gram (``torch.func.vmap`` over the stacked parameters and
+inputs: one batched evaluation, each Gram differentiable from its own
+slice), the S NLLs are one batched Cholesky (``cholesky_ex`` and
+``cholesky_solve`` batch), and one ``torch.optim.Adam`` steps the stacked
+parameters (:func:`adam_stacked`, which ``fit.fit_batch_independent``
+shares). Adam acts elementwise, so each segment follows its own Adam run.
 """
 from __future__ import annotations
 
@@ -85,28 +85,30 @@ def masked_nll(K, y, mask, noise, jitter) -> torch.Tensor:
     return raw - 0.5 * n_pad * (chol.LOG_2PI + torch.log(c + sigma2))
 
 
-def _stacked(module, params, fn, S: int) -> torch.Tensor:
-    """``torch.stack`` of ``fn(s)`` for s < S, each evaluated with slice s
-    of the stacked ``params`` tree (every leaf [S, ...]) installed in
-    ``module``, so each is differentiable from its slice. The module's
-    installed parameters come back afterwards."""
+def _stacked(module, params, fn, *args) -> torch.Tensor:
+    """``fn(*a)`` for every slice s of ``args`` (each [S, ...]), with slice
+    s of the stacked ``params`` tree (every leaf [S, ...]) installed in
+    ``module``, stacked on a leading S: one batched evaluation
+    (``torch.func.vmap``), each slice differentiable from its own
+    parameters. The module's installed parameters come back afterwards
+    (the last slice's, when none were installed)."""
     before = module.get_params() if module.has_params() else None
+
+    def one(p, *a):
+        module.set_params(p)
+        return fn(*a)
+
     try:
-        out = []
-        for s in range(S):
-            module.set_params(tree_map(lambda p: p[s], params))
-            out.append(fn(s))
-        return torch.stack(out)
+        return torch.func.vmap(one)(params, *args)
     finally:
-        if before is not None:
-            module.set_params(before)
+        module.set_params(before if before is not None
+                          else tree_map(lambda p: p[-1], params))
 
 
 def stacked_gram(kernel, params, x: torch.Tensor) -> torch.Tensor:
     """[S, L, L] Grams of x [S, L, d], segment s at slice s of the stacked
     params tree."""
-    return _stacked(kernel, params, lambda s: kernel.gram(x[s], x[s]),
-                    x.shape[0])
+    return _stacked(kernel, params, lambda xs: kernel.gram(xs, xs), x)
 
 
 def segmented_nll(kernel_segments: Sequence, params_segments, x, y, mask,
@@ -171,7 +173,6 @@ def adam_stacked(kernel, xb, yb, mb, inits, steps: int, lr: float,
     elementwise, so each problem follows its own Adam run. Returns (the
     final stacked tree, detached; the S NLLs of the last step, before its
     update). ``fixed_noise`` [S] is the noise when it is not optimised."""
-    S = xb.shape[0]
     pos = kernel.positivity()
     mpos = mean.positivity() if mean is not None else None
     u = tree_map(lambda *ls: torch.stack(ls).requires_grad_(True), *inits)
@@ -184,7 +185,7 @@ def adam_stacked(kernel, xb, yb, mb, inits, steps: int, lr: float,
         resid = yb
         if mean is not None:
             resid = yb - _stacked(mean, constrain(mpos, u["mean"]),
-                                  lambda s: mean.mean(xb[s]), S)
+                                  mean.mean, xb)
         nlls = masked_nll(K, resid, mb, noise, jitter)
         nlls.sum().backward()
         opt.step()

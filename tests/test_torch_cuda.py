@@ -1,7 +1,9 @@
 """The CUDA kernels on the card: K1 (Gram·V), K2 (the low-rank-cotangent
 gradient), the composite-expression kernels K3 and K4, and the dense Gram
 kernels K5 and K6 with the dense route around them and the Nyström
-posterior they serve. Marked ``cuda``:
+posterior they serve; and the MCMC path on the card (the stacked NLL, a
+lock-step NUTS transition against the CPU, one host read per doubling),
+which launches none of them. Marked ``cuda``:
 skipped where no GPU is present, run on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -921,3 +923,108 @@ def test_svgp_adam_step_makes_no_host_read(cuda):
     h = torch.stack(hist).cpu()
     assert bool(torch.isnan(h[3])) and bool(torch.isfinite(h[[0, 1, 2, 4]]).all())
     assert all(bool(torch.isfinite(t).all()) for t in svgp.svgp_leaves(params))
+
+
+def _gp_chains(device, n=300, C=4, seed=0):
+    """The Matérn-5/2~s hyperposterior of BASELINE config 3 (N(0, 3²) prior
+    on the unconstrained leaves) on ``make_stacked_nll`` in float64, and C
+    starting points near its mode."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.sort(torch.rand(n, 1, generator=g, dtype=torch.float64),
+                   dim=0).values
+    y = torch.sin(8 * x[:, 0]) + 0.1 * torch.randn(n, generator=g,
+                                                   dtype=torch.float64)
+    nll = gpt.make_stacked_nll(gpt.Matern52Kernel(scaled=True).to(device),
+                               gpt.ZeroMean(), x.to(device), y.to(device),
+                               optimize_noise=True)
+
+    def lp(u):
+        return -nll(u) - 0.5 * sum((l ** 2).reshape(C, -1).sum(-1)
+                                   for l in tree_leaves(u)) / 9.0
+
+    base = torch.tensor([-1.5, 0.0, -4.5], dtype=torch.float64)
+    q = (base + 0.1 * torch.randn(C, 3, generator=g,
+                                  dtype=torch.float64)).to(device)
+    return lp, {"kernel": {"lengthscale": q[:, 0], "variance": q[:, 1]},
+                "mean": {}, "log_noise": q[:, 2]}
+
+
+def test_make_stacked_nll_on_card_matches_make_nll(cuda):
+    """``make_stacked_nll`` of 4 parameter sets on the card against 4 calls
+    of ``make_nll``, value and gradient in float64 within 1e-10 relative."""
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_map
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(500, 1, generator=g, dtype=torch.float64).to(cuda)
+    y = torch.sin(6 * x[:, 0])
+    k = gpt.Matern52Kernel(scaled=True).to(cuda)
+    u = {"kernel": {"lengthscale": torch.tensor([-2.0, -1.5, -1.0, -0.5]),
+                    "variance": torch.tensor([0.0, 0.3, -0.3, 0.1])},
+         "mean": {}, "log_noise": torch.tensor([-4.0, -3.0, -5.0, -2.0])}
+    u = tree_map(lambda t: t.double().to(cuda).requires_grad_(True), u)
+    stacked = gpt.make_stacked_nll(k, gpt.ZeroMean(), x, y,
+                                   optimize_noise=True)(u)
+    grads = torch.autograd.grad(stacked.sum(), tree_leaves(u))
+    single = gpt.make_nll(k, gpt.ZeroMean(), x, y, optimize_noise=True)
+    for c in range(4):
+        uc = tree_map(lambda t: t[c].detach().requires_grad_(True), u)
+        v = single(uc)
+        gc = torch.autograd.grad(v, tree_leaves(uc))
+        assert abs(float(stacked[c].detach()) - float(v.detach())) <= (
+            1e-10 * abs(float(v.detach())))
+        for a, b in zip(grads, gc):
+            assert abs(float(a[c]) - float(b)) <= 1e-10 * max(1.0, abs(float(b)))
+
+
+def test_nuts_transition_on_card_matches_cpu(cuda):
+    """One lock-step transition of 4 GP chains (n = 300, float64) on the
+    card and on the CPU from the same draws: leapfrog counts and
+    divergences identical, positions within 1e-8."""
+    from gaussianprocessfundamentals_tpu_torch.mcmc import nuts as tnuts
+    from gaussianprocessfundamentals_tpu_torch.mcmc.hmc import value_and_grad
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import ravel_tree
+
+    outs = []
+    draws = None
+    for device in ("cpu", cuda):
+        lp, u0 = _gp_chains(device)
+        q, unravel = ravel_tree(u0, batch_ndim=1)
+        lpg = value_and_grad(lp, unravel)
+        if draws is None:
+            draws = tnuts.generator_draws(torch.Generator().manual_seed(9),
+                                          q, 6)(0)
+        d = tnuts.NUTSDraws(*(t.to(device) for t in draws))
+        lp0, g0 = lpg(q)
+        eps = torch.tensor([0.1, 0.3, 0.5, 0.8], dtype=torch.float64,
+                           device=device)
+        outs.append(tnuts.nuts_transition(
+            lpg, 6, d, q, lp0, g0, eps,
+            torch.tensor([0.1, 0.3, 0.1], dtype=torch.float64,
+                         device=device).expand(4, 3)))
+    cpu, card = outs
+    assert torch.equal(cpu[4], card[4].cpu()) and torch.equal(cpu[5],
+                                                              card[5].cpu())
+    assert float((cpu[0] - card[0].cpu()).abs().max()) <= 1e-8
+
+
+def test_nuts_chains_read_the_host_once_per_doubling(cuda):
+    """``nuts_chains`` of 4 GP chains (10 warmup transitions, 10 draws) on
+    the card under torch.cuda.set_sync_debug_mode("warn"): the
+    synchronisations counted equal the lock-step doublings, one each."""
+    import warnings
+
+    lp, u0 = _gp_chains(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = gpt.nuts_chains(lp, u0, gen, num_samples=10, num_warmup=10,
+                                  max_depth=6)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum(str(w.message).startswith(
+        "called a synchronizing CUDA operation") for w in caught)
+    assert res.doublings >= 20 and syncs == res.doublings
+    assert bool(torch.isfinite(res.log_probs).all())

@@ -87,6 +87,29 @@ found = gpt.greedy_kernel_search(
     max_depth=0, fit_kwargs={"steps": 3})
 bfit = gpt.fit(gpt.SquaredExponentialKernel(), torch.stack([xt_[:40], xt_[40:80]]),
                torch.stack([yt_[:40], yt_[40:80]]), method="adam", steps=3)
+# MCMC: a 5-draw NUTS chain and two lock-step GP chains, the data layer,
+# the metric factory and the profiling helpers
+nres = gpt.nuts(lambda q: -0.5 * torch.sum(q["x"] ** 2),
+                {"x": torch.zeros(2, dtype=torch.float64)},
+                torch.Generator().manual_seed(0), num_samples=5,
+                num_warmup=4, max_depth=3)
+xg, yg = gpt.synth_se(n=40, lengthscale=0.2, noise_sd=0.1, seed=0)
+snll = gpt.make_stacked_nll(gpt.Matern52Kernel(scaled=True), gpt.ZeroMean(),
+                            torch.from_numpy(xg), torch.from_numpy(yg),
+                            optimize_noise=True)
+u0 = {"kernel": {"lengthscale": torch.full((2,), -1.5, dtype=torch.float64),
+                 "variance": torch.zeros(2, dtype=torch.float64)},
+      "mean": {}, "log_noise": torch.full((2,), -4.0, dtype=torch.float64)}
+cres = gpt.nuts_chains(lambda u: -snll(u), u0, torch.Generator().manual_seed(1),
+                       num_samples=3, num_warmup=2, max_depth=3)
+di = gpt.load_named("mauna_loa", device="cpu")
+sub = di.subset_smoothed_grid(50)
+ll = gpt.compat.get_metric(gpt.compat.MetricType.LL)(
+    gpt.params_from_numpy(gpt.SquaredExponentialKernel(),
+                          {"lengthscale": np.float64(0.1)}),
+    sub.x_train, sub.y_train, 0.01)
+with gpt.timed("tiny"):
+    vec, _ = gpt.serialize_params(u0)
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
@@ -108,7 +131,11 @@ print(json.dumps({
                    and torch.isfinite(shist).all() and torch.isfinite(smu).all()
                    and torch.isfinite(svar).all() and torch.isfinite(paths).all()
                    and bool(np.isfinite(found.score))
-                   and bool(np.isfinite(bfit.nll_post))),
+                   and bool(np.isfinite(bfit.nll_post))
+                   and torch.isfinite(nres.log_probs).all()
+                   and torch.isfinite(cres.log_probs).all()
+                   and bool(torch.isfinite(ll)) and vec.shape == (6,)),
+    "nuts_draws": list(nres.samples["x"].shape) + list(cres.log_probs.shape),
     "fit_steps": len(res.history) + len(res2.history),
 }))
 """
@@ -123,7 +150,9 @@ def test_port_imports_and_serves_without_jax():
     Nyström fit and its projected-process posterior, an SKI fit, a SciPy
     BFGS fit, independent batched fits and the Toeplitz oracle; a 3-step
     SVGP fit and its predictive, pathwise draws through random Fourier
-    features, a one-base kernel search and a batched fit."""
+    features, a one-base kernel search and a batched fit; a 5-draw NUTS
+    chain, two lock-step NUTS chains on the stacked GP NLL, the Mauna Loa
+    CSV, a smoothed-grid subset, the metric factory and a timer."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests
@@ -134,7 +163,7 @@ def test_port_imports_and_serves_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"jax": [], "reference": [], "triton": False, "finite": True,
-                   "fit_steps": 6}
+                   "fit_steps": 6, "nuts_draws": [5, 2, 2, 3]}
 
 
 def test_no_module_of_the_port_imports_jax():

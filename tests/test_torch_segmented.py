@@ -12,6 +12,7 @@ Adam steps from the deterministic start to 1e-5 of optax's.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import gaussianprocessfundamentals_tpu as gpf
@@ -22,6 +23,10 @@ from gaussianprocessfundamentals_tpu.kernels.partition import (
 from gaussianprocessfundamentals_tpu.models import segmented as jseg
 from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
 from gaussianprocessfundamentals_tpu_torch.models import segmented as tseg
+from gaussianprocessfundamentals_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)
@@ -181,3 +186,48 @@ def test_fit_segments_vmapped_matches_optax():
         assert kp[n].shape == (2,)
         np.testing.assert_allclose(kp[n].numpy(), ref[n].numpy(), rtol=1e-5)
     np.testing.assert_allclose(noise.numpy(), np.asarray(jnoise), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["SE~s", "PER", "RQ", "composite",
+                                  "changepoint", "SE-ard"])
+def test_stacked_gram_equals_the_per_slice_grams(name):
+    """``stacked_gram`` (one ``torch.func.vmap`` over the slices) against
+    each slice's ``gram`` with its own parameters installed, float64, and
+    its gradient against the per-slice sum's; the kernel's installed
+    parameters come back."""
+    kernel, d = {
+        "SE~s": (gpt.SquaredExponentialKernel(scaled=True), 1),
+        "PER": (gpt.PeriodicKernel(), 1),
+        "RQ": (gpt.RationalQuadraticKernel(), 1),
+        "composite": (gpt.SquaredExponentialKernel(scaled=True)
+                      * gpt.PeriodicKernel() + gpt.LinearKernel()
+                      + gpt.WhiteNoiseKernel(scaled=True), 1),
+        "changepoint": (gpt.ChangePoint(children=(
+            gpt.SquaredExponentialKernel(), gpt.Matern52Kernel())), 1),
+        "SE-ard": (gpt.SquaredExponentialKernel(dim=2), 2),
+    }[name]
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(3, 40, d, generator=g, dtype=torch.float64)
+    slices = [kernel.init_params([[0.0, 1.0]] * d, 40,
+                                 torch.Generator().manual_seed(i),
+                                 torch.float64) for i in range(3)]
+    params = tree_map(lambda *l: torch.stack(l).requires_grad_(True),
+                      *slices)
+    kernel.set_params(slices[0])
+    got = tseg.stacked_gram(kernel, params, x)
+    assert all(tree_leaves(tree_map(torch.equal, kernel.get_params(),
+                                    slices[0])))
+    # a ChangePoint's hard gate has no gradient in its steepness
+    grads = torch.autograd.grad(got.sum(), tree_leaves(params),
+                                allow_unused=True, materialize_grads=True)
+    for i in range(3):
+        pi = tree_map(lambda t: t[i].detach().requires_grad_(True), params)
+        ref = kernel.set_params(pi).gram(x[i], x[i])
+        np.testing.assert_allclose(got[i].detach().numpy(),
+                                   ref.detach().numpy(), rtol=1e-13,
+                                   atol=1e-15)
+        for a, b in zip(grads, torch.autograd.grad(
+                ref.sum(), tree_leaves(pi), allow_unused=True,
+                materialize_grads=True)):
+            np.testing.assert_allclose(a[i].numpy(), b.numpy(), rtol=1e-10,
+                                       atol=1e-12)
