@@ -8,7 +8,10 @@ projected-process posterior through K5/K6, the SKC bounds, SKI); then SVGP
 at N = 100k and pathwise posterior draws at N = 20k through K5/K6, the
 greedy kernel search on the Mauna Loa record, and a batched fit; then
 BASELINE config 3, NUTS over a Matérn-5/2 GP's hyperparameters with 8
-chains on a batch axis, and the metric factory and data layer on the card.
+chains on a batch axis, and the metric factory and data layer on the card;
+then the multi-GPU slice over ranks on the one card: the mesh-sharded
+streaming fit and posterior at N = 200k, the block-cyclic distributed
+Cholesky at n = 32,768, and HMC and NUTS with one chain per rank.
 
     python3 chip_smoke.py
 
@@ -203,12 +206,43 @@ non-zero):
     transition (the synchronisations counted under
     ``set_sync_debug_mode("warn")`` against the doublings), split-R̂ and
     ESS per parameter, peak memory; gated (``NUTS_*``), and held against
-    ``hmc_chains`` (300 + 300, 16 leapfrogs) on the same target; one
+    ``hmc_chains`` (300 + 100, 16 leapfrogs) on the same target; one
     transition on the card against the CPU with the same draws; one under
     ``gpt.trace``: device busy share, launches and ms per leapfrog;
 33. ``compat.get_metric`` for every family at n = 4,096 in float32 against
     float64 on the card (``M11_RTOL``), a ``DataInput`` split and
-    ``subset_smoothed_grid`` on the card against the CPU.
+    ``subset_smoothed_grid`` on the card against the CPU;
+34-36. the multi-GPU slice, each over P = 2 gloo ranks sharing the card
+    (NCCL refuses two ranks on one GPU) and P = 1 over NCCL, one spawn
+    (``parallel.meshes.launch``) of ``_rank_multi_gpu`` per configuration,
+    the gates taken here with each limit beside its reading:
+    34. ``fit_iterative(mesh=…)`` at N = 200,000 (phase 25's data and
+        knobs, the constant + linear mean), 5 Adam steps, then
+        ``iterative_posterior_chunked(mesh=…)`` at 256 points: NLL history
+        within 1e-3 and parameters within 1e-2 of the same steps on the
+        same probes in this process, P = 1 NCCL within 1e-5 of it, phase
+        25's residual (≤ 1e-3) and RMSE (< 0.01) gates, no step skipped,
+        K1 and K2 launched on every rank (per-rank launches, seconds per
+        step, peak memory); the Mauna Loa composite's mesh matvec and
+        VJP at n = 20,000 against K3/K4 in this process (K3_RTOL);
+    35. the block-cyclic exact GP at n = 32,768 (SE ℓ 0.1, σ² 1e-2), each
+        rank building only its block-rows through K5, all in float32 as a
+        user calls it (block 512): ``distributed_nll`` on those block-rows,
+        factored in place, within 1e-4 of a float64 dense Cholesky of the
+        same K, and the rank's peak memory after it within 1.25 times its
+        block-rows; ``distributed_posterior`` at 64 points within phase
+        19's gates; 3 steps of ``fit_distributed`` with 8 probes (a finite
+        history that ends below its start), on P = 2 gloo ranks and on
+        P = 1 over NCCL; P = 1 NCCL within 1e-5 of P = 2 gloo on the
+        float32 NLL and fit history and on the NLL and posterior run
+        again on float64 inputs (float32's μ and var, where the two
+        factorisations round apart, printed);
+    36. config 3's log posterior (n = 1,000, Matérn-5/2, float64):
+        ``hmc_chains_collective`` (100 + 100 × 16 leapfrogs) and
+        ``nuts_chains_collective`` (100 + 100, max_depth 6), one chain per
+        rank: the bitwise-same step size on every rank, finite log-probs,
+        accept in [0.6, 0.95], and at P = 1 the result of ``hmc_chains``
+        / ``nuts_chains`` with C = 1 on the same draws within 1e-8.
 
 Each path's launch counts (all six kernels) are set to 0 just before it
 is driven and read just after. The second-to-last line, after the card's
@@ -220,8 +254,11 @@ phase 19, the segmented and partitioned paths of phases 20 and 21, the
 ChangePoint posterior of phase 23, the 50k gate of phase 24, the 200k fit
 and posterior of phase 25, the Nyström posteriors of phase 26, the SVGP
 predict of phase 28, the pathwise draws of phase 29, the search of phase
-30, the batched fit of phase 31, the NUTS and HMC chains of phase 32 and
-the metrics of phase 33), the largest absolute and relative
+30, the batched fit of phase 31, the NUTS and HMC chains of phase 32,
+the metrics of phase 33, and phases 34-36's ``mesh_fit_200k``,
+``mesh_posterior_200k``, ``block_cyclic_32k``, ``fit_distributed_32k``
+and ``mcmc_collective``, summed over the P = 2 gloo ranks, each rank's
+count in ``launches_by_rank``), the largest absolute and relative
 differences from the plain version over the checks (relative: K1's, K3's,
 K5's and K6's max|diff| / max|ref|, K2's per scalar, K4's per parameter
 array), the kernel's and the plain version's times at the main path's
@@ -2904,7 +2941,9 @@ def phase_batched_fit() -> dict:
 N_NUTS, C_NUTS, NUTS_DEPTH = 1_000, 8, 6
 NUTS_WARMUP, NUTS_SEG, NUTS_RESUMED = 300, 300, 2
 NUTS_PRIOR_VAR = 9.0  # the N(0, 3²) prior on the unconstrained leaves
-HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 300, 300, 16
+# HMC's draws cut 300 → 100 when phases 34-36 joined the smoke (its time
+# limit); the gates are unchanged
+HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 300, 100, 16
 NUTS_DIV_MAX, NUTS_ACCEPT = 0.05, (0.6, 0.95)
 NUTS_RHAT_MAX, NUTS_ESS_MIN, NUTS_MAX_LAG = 1.1, 100.0, 200
 NUTS_NOISE_BAND = (0.007, 0.014)  # posterior mean of σ² (truth 0.01)
@@ -3303,6 +3342,511 @@ def phase_m11() -> dict:
     return {"counts": total}
 
 
+# --- phases 34-36: the multi-GPU slice -------------------------------------
+# P = 2 gloo ranks share the one card (NCCL refuses two ranks on one GPU);
+# P = 1 over NCCL checks the NCCL path. Each configuration is one spawn
+# that runs the three phases' rank work; the gates are taken here.
+MESH_RANKS = 2
+N_MESH, MESH_STEPS, T_MESH = N_STORY, 5, 256
+# phase 25's knobs (FIT_KWARGS) for fit_iterative, and fit()'s step guard
+MESH_FIT_KW = dict(steps=MESH_STEPS, lr=0.05, num_probes=8, max_iters=25,
+                   precond_m=256, tol=3e-3, early_exit=False, resid_guard=0.5,
+                   init_noise=1e-2)
+MESH_HIST_RTOL, MESH_PARAM_RTOL, NCCL_RTOL = 1e-3, 1e-2, 1e-5
+N_MESH_EXPR = 20_000  # the composite's mesh matvec and VJP against K3/K4
+N_BC, T_BC, BC_BLOCK = 32_768, 64, 512  # block 512: timed in PERF.md §5
+BC_LS, BC_NOISE, BC_JITTER = 0.1, 1e-2, 1e-6
+BC_FIT_STEPS, BC_PROBES = 3, 8
+BC_NLL_RTOL = 1e-4  # against a float64 dense Cholesky of the same K
+BC_PEAK_RATIO = 1.25  # peak per rank after distributed_nll / its block-rows
+MC_WARMUP, MC_DRAWS, MC_LEAPFROG, MC_DEPTH = 100, 100, 16, 6
+MC_P1_TOL = 1e-8  # P = 1 collective against hmc_chains/nuts_chains, C = 1
+MESH_TIMEOUT = 600.0
+
+
+def _bc_data():
+    """Phase 35's problem: sorted x ~ U(0, 1), y = sin(8x) + 0.1ε, and the
+    SE kernel at ℓ 0.1 (float32 on the card)."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    g = torch.Generator().manual_seed(35)
+    x = torch.sort(torch.rand(N_BC, 1, generator=g), dim=0).values
+    y = torch.sin(8.0 * x[:, 0]) + 0.1 * torch.randn(N_BC, generator=g)
+    k = _with_params(gpt.SquaredExponentialKernel(), {"lengthscale": BC_LS})
+    return x.cuda(), y.cuda(), k
+
+
+def _mesh_expr_inputs():
+    """Phase 34's composite check: the Mauna Loa kernel at n = 20,000 with a
+    9-column V and a 12-column cotangent."""
+    g = torch.Generator().manual_seed(341)
+    x = torch.sort(torch.rand(N_MESH_EXPR, 1, generator=g), dim=0).values
+    V = torch.randn(N_MESH_EXPR, 9, generator=g)
+    U = torch.randn(N_MESH_EXPR, 12, generator=g)
+    W = torch.randn(N_MESH_EXPR, 12, generator=g)
+    return (_with_params(_mauna_kernel(), MAUNA_PARAMS),
+            *(t.cuda() for t in (x, V, U, W)))
+
+
+def _mc_target():
+    """Config 3's single-chain log posterior (``_nuts_target`` at C = 1)
+    and the starts of ``MESH_RANKS`` chains: the default + 0.1·N(0, 1)."""
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import (
+        ravel_tree,
+        tree_map,
+    )
+
+    logprob, u0 = _nuts_target()
+    flat0, unravel = ravel_tree(u0)
+    g = torch.Generator(device="cuda").manual_seed(36)
+    q0s = unravel(flat0 + 0.1 * torch.randn(
+        (MESH_RANKS, flat0.numel()), generator=g, dtype=flat0.dtype,
+        device="cuda"))
+    one = lambda u: logprob(tree_map(lambda l: l[None], u))[0]  # noqa: E731
+    return one, logprob, q0s
+
+
+def _mc_generator(chain: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(3600 + chain)
+
+
+def _rank_mesh_fit(mesh) -> dict:
+    """Phase 34 on one rank: 5 Adam steps of ``fit_iterative(mesh=…)`` at
+    N = 200,000 (the story's data, phase 25's knobs), the chunked posterior
+    at 256 points under the mesh, and the composite's mesh matvec and VJP;
+    launch counts, seconds per step and peak memory of this rank."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.models import iterative
+    from gaussianprocessfundamentals_tpu_torch.parallel import mesh_matvec
+
+    x, y = _trend_data(N_MESH, seed=24)
+    kernel = gpt.SquaredExponentialKernel(scaled=True).cuda()
+    mean = (gpt.ConstantMean() + gpt.LinearMean(dim=1)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    kp, mp, noise, hist, diag = iterative.fit_iterative(
+        kernel, x, y, gen, mean=mean, mesh=mesh, return_diagnostics=True,
+        **MESH_FIT_KW)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = _launch_counts()
+    xt = torch.linspace(0.01, 0.99, T_MESH, device="cuda")[:, None]
+    _zero_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mu, var = iterative.iterative_posterior_chunked(
+            kernel, x, y - mean.mean(x), xt, noise, stats=stats, mesh=mesh)
+        mu = mu + mean.mean(xt)
+    torch.cuda.synchronize()
+    post_s = time.perf_counter() - t0
+    post_counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    kc, xc, V, U, W = _mesh_expr_inputs()
+    _zero_counts()
+    with torch.no_grad():
+        mv = mesh_matvec.mesh_gram_matvec(kc, xc, V, mesh)
+        gv = mesh_matvec.mesh_lowrank_vjp(kc, xc, U, W, mesh)
+    expr_counts = _launch_counts()
+    return {"hist": hist, "kp": kp, "mp": mp, "noise": noise,
+            "frozen": diag["frozen_frac"], "fit_s": fit_s,
+            "fit_counts": fit_counts, "mu": mu, "var": var, "stats": stats,
+            "post_s": post_s, "post_counts": post_counts, "peak": peak,
+            "expr_mv": mv, "expr_vjp": gv, "expr_counts": expr_counts}
+
+
+def _rank_block_cyclic(mesh) -> dict:
+    """Phase 35 on one rank, in float32 as a user calls it: each rank
+    builds only its cyclic block-rows of K through K5 and
+    ``distributed_nll`` factors them in place; ``distributed_posterior`` at
+    64 points; 3 steps of ``fit_distributed`` with 8 probes; then the NLL
+    and posterior on float64 inputs (not counted, not in the peak)."""
+    from gaussianprocessfundamentals_tpu_torch.parallel import (
+        block_cholesky as bc,
+    )
+    from gaussianprocessfundamentals_tpu_torch.parallel import distributed_fit
+
+    x, y, k = _bc_data()
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out["nll"] = bc.distributed_nll(
+            bc.cyclic_gram(k, x, BC_BLOCK, mesh), y, BC_NOISE, BC_JITTER,
+            mesh, block=BC_BLOCK)
+    torch.cuda.synchronize()
+    out["nll_s"] = time.perf_counter() - t0
+    out["nll_peak"] = torch.cuda.max_memory_allocated()
+    nll_counts = _launch_counts()
+    xt = torch.linspace(0.005, 0.995, T_BC, device="cuda")[:, None]
+    _zero_counts()
+    t0 = time.perf_counter()
+    out["mu"], out["var"] = bc.distributed_posterior(
+        k, x, y, xt, BC_NOISE, BC_JITTER, mesh, block=BC_BLOCK)
+    torch.cuda.synchronize()
+    out["post_s"] = time.perf_counter() - t0
+    out["post_counts"] = _launch_counts()
+    import gaussianprocessfundamentals_tpu_torch as gpt
+
+    kf = gpt.SquaredExponentialKernel().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    _zero_counts()
+    t0 = time.perf_counter()
+    kp, noise, hist = distributed_fit.fit_distributed(
+        kf, x, y, mesh, gen, block=BC_BLOCK, probes=BC_PROBES,
+        steps=BC_FIT_STEPS, lr=0.05)
+    torch.cuda.synchronize()
+    out.update(fit_s=time.perf_counter() - t0, fit_counts=_launch_counts(),
+               fit_hist=hist, fit_kp=kp, fit_noise=noise,
+               nll_counts=nll_counts, peak=torch.cuda.max_memory_allocated())
+    # the NLL and posterior on float64 inputs (the plain Gram), for the
+    # NCCL-vs-gloo agreement: P = 1 and P = 2 order their GEMMs' sums alike
+    # only in float64. (A float64 fit has no card route: K2 takes float32.)
+    x64, y64, k64 = x.double(), y.double(), _f64(k)
+    with torch.no_grad():
+        nll64 = bc.distributed_nll(
+            bc.cyclic_gram(k64, x64, BC_BLOCK, mesh), y64, BC_NOISE,
+            BC_JITTER, mesh, block=BC_BLOCK)
+    mu64, var64 = bc.distributed_posterior(
+        k64, x64, y64, xt.double(), BC_NOISE, BC_JITTER, mesh,
+        block=BC_BLOCK)
+    out["f64"] = {"nll": nll64, "mu": mu64, "var": var64}
+    return out
+
+
+def _rank_mcmc(mesh) -> dict:
+    """Phase 36 on one rank: ``hmc_chains_collective`` and
+    ``nuts_chains_collective``, one chain of config 3 per rank; at P = 1
+    also ``hmc_chains`` / ``nuts_chains`` with C = 1 on the same draws."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_map
+
+    one, stacked, q0s = _mc_target()
+    i = mesh.index("dp")
+    q0s = tree_map(lambda l: l[:mesh.size("dp")], q0s)
+    _zero_counts()
+    out = {}
+    t0 = time.perf_counter()
+    out["hmc"] = gpt.hmc_chains_collective(
+        one, q0s, _mc_generator(i), mesh, num_samples=MC_DRAWS,
+        num_warmup=MC_WARMUP, num_leapfrog=MC_LEAPFROG)
+    torch.cuda.synchronize()
+    out["hmc_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["nuts"] = tuple(gpt.nuts_chains_collective(
+        one, q0s, _mc_generator(i), mesh, num_samples=MC_DRAWS,
+        num_warmup=MC_WARMUP, max_depth=MC_DEPTH))
+    torch.cuda.synchronize()
+    out["nuts_s"] = time.perf_counter() - t0
+    out["counts"] = _launch_counts()
+    if mesh.size("dp") == 1:
+        out["hmc_c1"] = gpt.hmc_chains(
+            stacked, q0s, _mc_generator(0), num_samples=MC_DRAWS,
+            num_warmup=MC_WARMUP, num_leapfrog=MC_LEAPFROG)
+        out["nuts_c1"] = tuple(gpt.nuts_chains(
+            stacked, q0s, _mc_generator(0), num_samples=MC_DRAWS,
+            num_warmup=MC_WARMUP, max_depth=MC_DEPTH))
+    return out
+
+
+def _rank_multi_gpu() -> dict:
+    """Every rank's share of phases 34-36 (the spawned function)."""
+    import sys
+
+    import torch.distributed as dist
+
+    from gaussianprocessfundamentals_tpu_torch.parallel.meshes import (
+        single_axis_mesh,
+    )
+
+    assert "jax" not in sys.modules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    tp, dp = single_axis_mesh("tp"), single_axis_mesh("dp")
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "device": torch.cuda.current_device(),
+            "mesh_fit": _rank_mesh_fit(tp),
+            "block_cyclic": _rank_block_cyclic(tp),
+            "mcmc": _rank_mcmc(dp)}
+
+
+def _rel(a, b) -> float:
+    a = torch.as_tensor(a).detach().cpu().double()
+    b = torch.as_tensor(b).detach().cpu().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _tree_rel(a, b) -> float:
+    from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+
+    return max(_rel(u, v) for u, v in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _single_mesh_fit() -> dict:
+    """Phase 34's single-process reference: the same 5 steps on the same
+    probes, the same posterior, and K3/K4 on the composite's inputs."""
+    import gaussianprocessfundamentals_tpu_torch as gpt
+    from gaussianprocessfundamentals_tpu_torch.models import iterative
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_expr import (
+        expr_lowrank_vjp_for,
+        expr_matvec_for,
+    )
+
+    x, y = _trend_data(N_MESH, seed=24)
+    kernel = gpt.SquaredExponentialKernel(scaled=True).cuda()
+    mean = (gpt.ConstantMean() + gpt.LinearMean(dim=1)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    t0 = time.perf_counter()
+    kp, mp, noise, hist, _ = iterative.fit_iterative(
+        kernel, x, y, gen, mean=mean, return_diagnostics=True, **MESH_FIT_KW)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    xt = torch.linspace(0.01, 0.99, T_MESH, device="cuda")[:, None]
+    with torch.no_grad():
+        mu, var = iterative.iterative_posterior_chunked(
+            kernel, x, y - mean.mean(x), xt, noise)
+        mu = mu + mean.mean(xt)
+    kc, xc, V, U, W = _mesh_expr_inputs()
+    with torch.no_grad():
+        mv = expr_matvec_for(kc, xc)(V)
+        gv = expr_lowrank_vjp_for(kc, xc)(U, W)
+    truth = 2.0 + 3.0 * xt[:, 0] + torch.sin(8.0 * xt[:, 0])
+    return {"hist": hist, "kp": kp, "mp": mp, "noise": noise, "mu": mu,
+            "var": var, "fit_s": fit_s, "expr_mv": mv, "expr_vjp": gv,
+            "truth": truth.cpu()}
+
+
+def _bc_oracle() -> dict:
+    """Phase 35's float64 oracle: the dense Cholesky of the same float32 K
+    (built by K5, then cast), its NLL and posterior at 64 points."""
+    from gaussianprocessfundamentals_tpu_torch.linalg.cholesky import LOG_2PI
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_dense_gram import (
+        dense_gram_for,
+    )
+
+    x, y, k = _bc_data()
+    xt = torch.linspace(0.005, 0.995, T_BC, device="cuda")[:, None]
+    with torch.no_grad():
+        K = dense_gram_for(k, x, x).double()
+        K.diagonal().add_(BC_NOISE + BC_JITTER)
+        L = torch.linalg.cholesky(K)
+        del K
+        yd = y.double()
+        z = torch.linalg.solve_triangular(L, yd[:, None], upper=False)[:, 0]
+        nll = (0.5 * torch.dot(z, z) + torch.log(torch.diagonal(L)).sum()
+               + 0.5 * N_BC * LOG_2PI)
+        K_s = dense_gram_for(k, x, xt).double()
+        alpha = torch.cholesky_solve(yd[:, None], L)[:, 0]
+        V = torch.linalg.solve_triangular(L, K_s, upper=False)
+        mu = K_s.T @ alpha
+        var = k.diag(xt).double() - (V * V).sum(0)
+    return {"nll": float(nll), "mu": mu.cpu(), "var": var.cpu()}
+
+
+def phase_multi_gpu() -> dict:
+    """Phases 34-36 (the multi-GPU slice): P = 2 gloo ranks on the one card
+    and P = 1 over NCCL, each a spawn of ``_rank_multi_gpu``; then the
+    single-process references and every gate, each limit beside its
+    reading."""
+    from gaussianprocessfundamentals_tpu_torch.parallel.meshes import launch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    runs = {}
+    for backend, P in (("gloo", MESH_RANKS), ("nccl", 1)):
+        t0 = time.perf_counter()
+        runs[backend] = launch(_rank_multi_gpu, P, backend=backend,
+                               device="cuda", timeout=MESH_TIMEOUT)
+        log(f"[multi-gpu] {P} rank(s), {backend} on "
+            f"{torch.cuda.get_device_name(0)} (cuda:"
+            f"{[r['device'] for r in runs[backend]]}): ranks ran "
+            f"{[(r['backend'], r['world']) for r in runs[backend]]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    gl, nc = runs["gloo"], runs["nccl"][0]
+    checks = {}
+
+    # phase 34
+    ref = _single_mesh_fit()
+    f0 = gl[0]["mesh_fit"]
+    hist_rel = max(_rel(r["mesh_fit"]["hist"], ref["hist"]) for r in gl)
+    par_rel = max(max(_tree_rel(r["mesh_fit"]["kp"], ref["kp"]),
+                      _tree_rel(r["mesh_fit"]["mp"], ref["mp"]),
+                      _rel(r["mesh_fit"]["noise"], ref["noise"])) for r in gl)
+    nccl_rel = max(_rel(nc["mesh_fit"]["hist"], ref["hist"]),
+                   _tree_rel(nc["mesh_fit"]["kp"], ref["kp"]),
+                   _rel(nc["mesh_fit"]["noise"], ref["noise"]))
+    rmse = float(torch.sqrt(torch.mean((f0["mu"] - ref["truth"]) ** 2)))
+    resid = max(f0["stats"]["rel_resid"])
+    mv_err = max(float((r["mesh_fit"]["expr_mv"] - ref["expr_mv"].cpu())
+                       .abs().max()) for r in gl)
+    mv_lim = K3_RTOL * float(ref["expr_mv"].abs().max())
+    vjp_rel = max(_tree_rel(r["mesh_fit"]["expr_vjp"], ref["expr_vjp"])
+                  for r in gl)
+    per_rank = [{"K1": r["mesh_fit"]["fit_counts"]["K1"],
+                 "K2": r["mesh_fit"]["fit_counts"]["K2"],
+                 "s_per_step": r["mesh_fit"]["fit_s"] / MESH_STEPS,
+                 "peak_GB": r["mesh_fit"]["peak"] / 1e9} for r in gl]
+    log(f"[mesh-fit] N={N_MESH}, {MESH_STEPS} Adam steps of "
+        f"fit_iterative(mesh=…) on {MESH_RANKS} gloo ranks: per rank "
+        f"{per_rank}; single process {ref['fit_s'] / MESH_STEPS:.3f} s/step; "
+        f"NCCL P=1 {nc['mesh_fit']['fit_s'] / MESH_STEPS:.3f} s/step; NLL "
+        f"history {[float(f'{v:.3f}') for v in f0['hist']]} (single "
+        f"{[float(f'{v:.3f}') for v in ref['hist']]}): rel {hist_rel:.2e} "
+        f"(limit {MESH_HIST_RTOL}); params rel {par_rel:.2e} (limit "
+        f"{MESH_PARAM_RTOL}); NCCL P=1 vs single rel {nccl_rel:.2e} (limit "
+        f"{NCCL_RTOL}); skipped steps {f0['frozen']}")
+    log(f"[mesh-posterior] {T_MESH} points under the mesh: "
+        f"{f0['post_s']:.3f} s, CG iters {f0['stats']['iters']}, max true "
+        f"rel resid {resid:.3e} (limit 1e-3), RMSE vs the noise-free function "
+        f"{rmse:.5f} (limit 0.01), max|μ − single| "
+        f"{float((f0['mu'] - ref['mu'].cpu()).abs().max()):.3e}, launches "
+        f"per rank {[r['mesh_fit']['post_counts'] for r in gl]}")
+    log(f"[mesh-expr] Mauna composite at n={N_MESH_EXPR}: mesh matvec vs "
+        f"single-process K3 max|diff| {mv_err:.3e} (limit K3_RTOL·max|ref| = "
+        f"{mv_lim:.3e}), mesh VJP vs K4 per-array rel {vjp_rel:.3e} (limit "
+        f"{K3_RTOL}); launches per rank "
+        f"{[r['mesh_fit']['expr_counts'] for r in gl]}")
+    checks.update({
+        "34: NLL history vs single process": hist_rel <= MESH_HIST_RTOL,
+        "34: fitted params vs single process": par_rel <= MESH_PARAM_RTOL,
+        "34: NCCL P=1 vs single process": nccl_rel <= NCCL_RTOL,
+        "34: residual <= 1e-3": resid <= 1e-3,
+        "34: RMSE < 0.01": rmse < 0.01,
+        "34: no step skipped": all(r["mesh_fit"]["frozen"] == 0.0 for r in gl),
+        "34: K1 and K2 on every rank": all(
+            c["K1"] > 0 and c["K2"] == MESH_STEPS for c in per_rank),
+        "34: composite matvec": mv_err <= mv_lim,
+        "34: composite VJP": vjp_rel <= K3_RTOL,
+        "34: K3 and K4 on every rank": all(
+            r["mesh_fit"]["expr_counts"]["K3"] > 0
+            and r["mesh_fit"]["expr_counts"]["K4"] > 0 for r in gl),
+    })
+
+    # phase 35
+    orc = _bc_oracle()
+    b0 = gl[0]["block_cyclic"]
+    nll_rel = abs(float(b0["nll"]) - orc["nll"]) / abs(orc["nll"])
+    mu_err = float((b0["mu"].double() - orc["mu"]).abs().max())
+    var_err = float((b0["var"].double() - orc["var"]).abs().max())
+    mu_lim = 1e-3 * float(orc["mu"].abs().max())
+    var_lim = 5e-2 * float(orc["var"].abs().max())
+    fh = [float(v) for v in b0["fit_hist"]]
+    bn = nc["block_cyclic"]
+    rows_bytes = N_BC * N_BC * 4 / MESH_RANKS  # float32 block-rows per rank
+    nc_nll_rel = abs(float(bn["nll"]) - orc["nll"]) / abs(orc["nll"])
+    nc_mu_err = float((bn["mu"].double() - orc["mu"]).abs().max())
+    nc_var_err = float((bn["var"].double() - orc["var"]).abs().max())
+    # P = 1 against P = 2: the float32 NLL and fit history, and the float64
+    # NLL and posterior (float32's μ and var are read, not gated: P = 1
+    # and 2 round apart there, and var is a difference of numbers near 1)
+    f32_p12 = {k: _rel(bn[k], b0[k]) for k in ("nll", "mu", "var", "fit_hist")}
+    f64_p12 = {k: _rel(bn["f64"][k], b0["f64"][k])
+               for k in ("nll", "mu", "var")}
+    bc_nccl = max(*f64_p12.values(), f32_p12["nll"], f32_p12["fit_hist"])
+    log(f"[block-cyclic] n={N_BC} (SE ℓ {BC_LS}, σ² {BC_NOISE}, block "
+        f"{BC_BLOCK}, float32) on {MESH_RANKS} gloo ranks, K from each "
+        f"rank's block-rows (K5), factored in place: distributed_nll "
+        f"{float(b0['nll']):.4f} vs float64 dense {orc['nll']:.4f}: rel "
+        f"{nll_rel:.2e} (limit {BC_NLL_RTOL}); {b0['nll_s']:.3f} s (NCCL P=1 "
+        f"{bn['nll_s']:.3f} s), peak per rank after it "
+        f"{[r['block_cyclic']['nll_peak'] / 1e9 for r in gl]} GB (limit "
+        f"{BC_PEAK_RATIO} x its block-rows' {rows_bytes / 1e9:.3f} GB); "
+        f"posterior at {T_BC} points {b0['post_s']:.3f} s: max|Δμ| "
+        f"{mu_err:.3e} (limit {mu_lim:.3e}), max|Δvar| {var_err:.3e} (limit "
+        f"{var_lim:.3e}); launches per rank (nll, posterior) "
+        f"{[(r['block_cyclic']['nll_counts'], r['block_cyclic']['post_counts']) for r in gl]}; "
+        f"peak per rank {[r['block_cyclic']['peak'] / 1e9 for r in gl]} GB")
+    log(f"[fit-distributed] {BC_FIT_STEPS} steps, {BC_PROBES} probes: NLL "
+        f"{[float(f'{v:.3f}') for v in fh]}, {b0['fit_s'] / BC_FIT_STEPS:.3f} "
+        f"s/step, ℓ {float(b0['fit_kp']['lengthscale']):.4f}, σ² "
+        f"{float(b0['fit_noise']):.5f}; launches per rank "
+        f"{[r['block_cyclic']['fit_counts'] for r in gl]}")
+    log(f"[block-cyclic-nccl] NCCL P=1, float32: NLL rel {nc_nll_rel:.2e} "
+        f"(limit {BC_NLL_RTOL}), max|Δμ| {nc_mu_err:.3e} (limit "
+        f"{mu_lim:.3e}), max|Δvar| {nc_var_err:.3e} (limit {var_lim:.3e}) "
+        f"from the float64 oracle; fit NLL "
+        f"{[float(f'{v:.3f}') for v in bn['fit_hist']]}; NCCL P=1 vs gloo "
+        f"P=2 rel (limit {NCCL_RTOL} on all but float32 μ and var), "
+        f"float64 inputs "
+        f"{ {k: f'{v:.2e}' for k, v in f64_p12.items()} } (float64 NLL "
+        f"{float(b0['f64']['nll']):.4f}), float32 "
+        f"{ {k: f'{v:.2e}' for k, v in f32_p12.items()} }")
+    checks.update({
+        "35: NLL vs float64 dense": nll_rel <= BC_NLL_RTOL,
+        "35: posterior mean": mu_err <= mu_lim,
+        "35: posterior variance": var_err <= var_lim,
+        "35: fit history finite and ends below its start":
+        all(np.isfinite(fh)) and fh[-1] < fh[0],
+        "35: NCCL P=1 NLL vs float64 dense": nc_nll_rel <= BC_NLL_RTOL,
+        "35: NCCL P=1 posterior": nc_mu_err <= mu_lim
+        and nc_var_err <= var_lim,
+        "35: NCCL P=1 fit history finite and falls": bool(
+            torch.isfinite(bn["fit_hist"]).all())
+        and float(bn["fit_hist"][-1]) < float(bn["fit_hist"][0]),
+        "35: NCCL P=1 vs gloo P=2": bc_nccl <= NCCL_RTOL,
+        "35: one copy of the block-rows per rank": all(
+            r["block_cyclic"]["nll_peak"] <= BC_PEAK_RATIO * rows_bytes
+            for r in gl),
+        "35: K5 builds the block-rows on every rank": all(
+            r["block_cyclic"]["nll_counts"]["K5"] > 0 for r in gl),
+        "35: K2 in fit_distributed on every rank": all(
+            r["block_cyclic"]["fit_counts"]["K2"] == BC_FIT_STEPS for r in gl),
+    })
+
+    # phase 36
+    # every rank's copy of every chain's step size: one value per sampler
+    same_eps = all(
+        bool((v == v[0]).all()) for v in (
+            torch.cat([r["mcmc"][k][2].reshape(-1) for r in gl])
+            for k in ("hmc", "nuts")))
+    m0 = gl[0]["mcmc"]
+    acc = {k: float(m0[k][1].double().mean()) for k in ("hmc", "nuts")}
+    finite = all(bool(torch.isfinite(m0[k][i]).all())
+                 for k, i in (("hmc", 3), ("nuts", 5)))
+    p1 = max(_tree_rel(tuple(nc["mcmc"]["hmc"]), tuple(nc["mcmc"]["hmc_c1"])),
+             _tree_rel(nc["mcmc"]["nuts"][:7], nc["mcmc"]["nuts_c1"][:7]))
+    log(f"[mcmc-collective] config 3 (n={N_NUTS}, Matérn-5/2, float64), one "
+        f"chain per rank on {MESH_RANKS} gloo ranks: HMC "
+        f"{MC_WARMUP}+{MC_DRAWS} x {MC_LEAPFROG} leapfrogs in "
+        f"{m0['hmc_s']:.1f} s, accept {acc['hmc']:.3f}, step size "
+        f"{m0['hmc'][2].tolist()}; NUTS {MC_WARMUP}+{MC_DRAWS} (max_depth "
+        f"{MC_DEPTH}) in {m0['nuts_s']:.1f} s, accept {acc['nuts']:.3f}, step "
+        f"size {m0['nuts'][2].tolist()}, leapfrogs/draw "
+        f"{float(m0['nuts'][3].double().mean()):.1f}; accept limits "
+        f"{NUTS_ACCEPT}; bitwise-same step size on every rank: {same_eps}; "
+        f"NCCL P=1 vs hmc_chains/nuts_chains C=1 max rel {p1:.2e} (limit "
+        f"{MC_P1_TOL})")
+    checks.update({
+        "36: bitwise-same step size": same_eps,
+        "36: log-probs finite": finite,
+        "36: accept in range": all(NUTS_ACCEPT[0] <= a <= NUTS_ACCEPT[1]
+                                   for a in acc.values()),
+        "36: P=1 equals C=1": p1 <= MC_P1_TOL,
+    })
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"multi-GPU checks failed: {failed}")
+
+    def sum_counts(key_of):
+        return {k: sum(key_of(r)[k] for r in gl) for k in _wrappers()}
+
+    paths = {
+        "mesh_fit_200k": lambda r: r["mesh_fit"]["fit_counts"],
+        "mesh_posterior_200k": lambda r: r["mesh_fit"]["post_counts"],
+        "block_cyclic_32k": lambda r: {
+            k: r["block_cyclic"]["nll_counts"][k]
+            + r["block_cyclic"]["post_counts"][k] for k in _wrappers()},
+        "fit_distributed_32k": lambda r: r["block_cyclic"]["fit_counts"],
+        "mcmc_collective": lambda r: r["mcmc"]["counts"],
+    }
+    return {"counts": {p: sum_counts(f) for p, f in paths.items()},
+            "by_rank": {p: [f(r) for r in gl] for p, f in paths.items()}}
+
+
 def _kernel_entry(name, source, replaces, by_path, worst, times) -> dict:
     ms, plain_ms, bound_ms, bound_by = times
     return {"name": name, "route": "cuda",
@@ -3348,6 +3892,7 @@ def main() -> None:
     batched = phase_batched_fit()
     nuts = phase_nuts()
     m11 = phase_m11()
+    multi = phase_multi_gpu()
     k1_worst = _worse(_worse(k1_worst, main_res["worst"]), fit_time["k1_worst"])
     k2_worst = _worse(k2_worst, fit_time["worst"])
     k3_worst = _worse(k3_worst, expr_time["k3_worst"])
@@ -3370,8 +3915,11 @@ def main() -> None:
              "nystroem_posterior_m10000": ny["counts"][f"se_m{M_NY_RATIO}"],
              "svgp_predict": svgp_res["counts"], "pathwise": pw["counts"],
              "search": search["counts"], "batched_fit": batched["counts"],
-             "nuts_config3": nuts["counts"], "get_metric": m11["counts"]}
+             "nuts_config3": nuts["counts"], "get_metric": m11["counts"],
+             **multi["counts"]}
     by_path = {k: {p: c[k] for p, c in paths.items()} for k in _wrappers()}
+    by_rank = {k: {p: [c[k] for c in cs] for p, cs in multi["by_rank"].items()}
+               for k in _wrappers()}
     k1_widths = {1: main_res["times"][1], R_CG: fit_time["k1"],
                  256: main_res["times"][256]}
     k1 = _kernel_entry("fused_gram_matvec_cross", "gram_matvec.cu",
@@ -3406,6 +3954,10 @@ def main() -> None:
     for entry in (k2, k4):  # the rank-273 cotangent product's rate
         entry["product_tflops"] = (2 * N_MAIN * N_MAIN * R_MAIN
                                    / (entry["ms"] * 1e-3) / 1e12)
+    for name, entry in zip(("K1", "K2", "K3", "K4", "K5", "K6"),
+                           (k1, k2, k3, k4, *k56)):
+        # the multi-GPU paths' launches on each of the P = 2 gloo ranks
+        entry["launches_by_rank"] = by_rank[name]
     log(smi)
     log(json.dumps({"kernels": [k1, k2, k3, k4, *k56]}))
     print(json.dumps({"ok": True, "device": {

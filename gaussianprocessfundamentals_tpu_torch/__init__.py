@@ -22,7 +22,15 @@ expressions (``greedy_kernel_search``); HMC and NUTS over the
 hyperparameters with the chains on a batch axis (``hmc_chains``,
 ``nuts_chains`` on ``make_stacked_nll``, resumable with
 ``nuts_chains_resume``; split-R̂ and ESS), and the reference's data,
-metric-factory (``compat``), profiling and plotting helpers. On the GPU the work runs in
+metric-factory (``compat``), profiling and plotting helpers. Across
+processes (``parallel``: one process per rank on ``torch.distributed``,
+``launch`` or ``torchrun``; gloo on the CPU and for P ranks on one GPU,
+NCCL for one rank per GPU): ``fit_iterative``, ``fit`` and the chunked
+posterior with ``mesh=`` (each rank's row panel of K·V), the block-cyclic
+distributed Cholesky (``distributed_nll``, ``distributed_posterior``,
+``fit_distributed``), and HMC/NUTS with one chain per rank and a
+collectively adapted step size (``hmc_chains_collective``,
+``nuts_chains_collective``). On the GPU the work runs in
 hand-written CUDA kernels: the dense route's Grams (and the Nyström posterior's) in
 ``csrc/dense_gram.cu`` (SE and Matérn leaves, K + (σ² + jitter)·I in one
 pass); above 40k rows, where K is never formed, Gram·V in
@@ -100,12 +108,14 @@ from gaussianprocessfundamentals_tpu_torch.mcmc.hmc import (
     effective_sample_size,
     hmc,
     hmc_chains,
+    hmc_chains_collective,
     potential_scale_reduction,
 )
 from gaussianprocessfundamentals_tpu_torch.mcmc.nuts import (
     NUTSResult,
     nuts,
     nuts_chains,
+    nuts_chains_collective,
     nuts_chains_resume,
     nuts_resume,
 )
@@ -155,6 +165,30 @@ from gaussianprocessfundamentals_tpu_torch.models.svgp import (
     fit_svgp,
     svgp_elbo,
     svgp_predict,
+)
+from gaussianprocessfundamentals_tpu_torch.parallel.block_cholesky import (
+    distributed_chol_solve,
+    distributed_cholesky,
+    distributed_nll,
+    distributed_posterior,
+)
+from gaussianprocessfundamentals_tpu_torch.parallel.distributed_fit import (
+    distributed_nll_value_and_grad,
+    fit_distributed,
+)
+from gaussianprocessfundamentals_tpu_torch.parallel.dryrun import (
+    dryrun_multichip,
+)
+from gaussianprocessfundamentals_tpu_torch.parallel.mesh_matvec import (
+    mesh_gram_matvec,
+    mesh_lowrank_vjp,
+)
+from gaussianprocessfundamentals_tpu_torch.parallel.meshes import (
+    Mesh,
+    init_multihost,
+    launch,
+    make_mesh,
+    single_axis_mesh,
 )
 from gaussianprocessfundamentals_tpu_torch.utils.auxiliary import (
     SimilarityTransform,

@@ -439,7 +439,11 @@ def _fit_iterative_routed(kernel, x, y, generator, steps, lr, restarts,
                           enforce_bounds: bool = False) -> FitResult:
     """fit()'s large-n route: Adam over the mBCG + SLQ iterative NLL
     (:func:`..models.iterative.fit_iterative`), with the median-residual
-    step guard at 0.5 unless ``iterative_kwargs`` says otherwise."""
+    step guard at 0.5 unless ``iterative_kwargs`` says otherwise. A
+    ``mesh`` in ``iterative_kwargs`` shards the products over its ranks;
+    restarts then run here one after another (``fit_iterative`` refuses
+    them under a mesh), each from fit_iterative's own restart point and
+    probe stream, the best final NLL winning, NaN-safe."""
     from gaussianprocessfundamentals_tpu_torch.models.iterative import (
         fit_iterative,
     )
@@ -451,13 +455,32 @@ def _fit_iterative_routed(kernel, x, y, generator, steps, lr, restarts,
     init_noise = max(float(noise), 1e-6) if optimize_noise else float(noise)
     if type(mean) is ZeroMean:
         mean = None  # contributes nothing; keep the lean path
-    out = fit_iterative(
-        kernel, x, y, generator, steps=steps, lr=lr, restarts=restarts,
-        optimize_noise=optimize_noise, init_noise=init_noise, xrange=xrange,
-        mean=mean, enforce_bounds=enforce_bounds, return_diagnostics=True,
-        **kw,
-    )
-    return iterative_fit_result(out, mean is not None)
+    common = dict(steps=steps, lr=lr, optimize_noise=optimize_noise,
+                  init_noise=init_noise, xrange=xrange, mean=mean,
+                  enforce_bounds=enforce_bounds, return_diagnostics=True, **kw)
+    if kw.get("mesh") is None or restarts == 0:
+        out = fit_iterative(kernel, x, y, generator, restarts=restarts,
+                            **common)
+        return iterative_fit_result(out, mean is not None)
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(0)
+    probe_state = generator.get_state()
+    best = None
+    for i in range(restarts + 1):
+        g_init = (common.pop("init_generator", None) if i == 0 else
+                  torch.Generator().manual_seed(
+                      generator.initial_seed() + 0xA110 + i))
+        generator.set_state(probe_state)
+        res = iterative_fit_result(
+            fit_iterative(kernel, x, y, generator, init_generator=g_init,
+                          **common), mean is not None)
+        if best is None or (res.nll_post == res.nll_post
+                            and not best.nll_post <= res.nll_post):
+            best = res
+    kernel.set_params(best.kernel_params)
+    if mean is not None:
+        mean.set_params(best.mean_params)
+    return best
 
 
 def fit(

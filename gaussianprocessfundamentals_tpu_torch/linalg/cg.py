@@ -36,6 +36,7 @@ def cg_solve(
     max_iters: Optional[int] = None,
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     stats: Optional[dict] = None,
+    any_active: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Solve A x = b for SPD A given only ``matvec``; b: [n] (one right-hand
     side: batches go through :func:`..mbcg.mbcg`).
@@ -44,6 +45,8 @@ def cg_solve(
     iterations have run and no residual entry is NaN; an iteration whose
     residual turns NaN keeps the previous iterate. ``stats``, when given,
     gets the iterations run appended to its ``"iters"`` list.
+    ``any_active(active)`` settles the loop's exit across the ranks of a
+    mesh (the matvec's collectives must run as often on each).
     """
     if b.ndim != 1:
         raise ValueError("cg_solve is single-RHS; use linalg.mbcg for batches")
@@ -62,7 +65,8 @@ def cg_solve(
     active = torch.max(torch.abs(r)) >= tol
     iters = torch.zeros((), dtype=torch.int64, device=b.device)
     for i in range(max_iters):
-        if i % _CHECK_EVERY == 0 and not bool(active):
+        if i % _CHECK_EVERY == 0 and not bool(
+                active if any_active is None else any_active(active)):
             break
         Ap = matvec(p)
         denom = torch.sum(p * Ap)

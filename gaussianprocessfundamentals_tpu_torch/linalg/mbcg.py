@@ -42,6 +42,7 @@ def mbcg(
     tol: float = 1e-8,
     precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     early_exit: bool = False,
+    all_done: Optional[Callable[[torch.Tensor], bool]] = None,
 ) -> MBCGResult:
     """Batched CG on A X = B with B: [n, r]; ``matvec`` maps [n, r] → [n, r].
 
@@ -50,6 +51,11 @@ def mbcg(
     precision), when its residual drops below ``tol``, or when it has
     bounced above 4× its best residual for 25 consecutive iterations after
     reaching 1% of ‖b‖. The returned solves are each column's best iterate.
+
+    ``all_done(done) -> bool`` replaces the early exit's host read of
+    ``done.all()``: under a mesh it settles the exit across the ranks, so
+    every rank runs the same number of matvecs (their collectives must
+    match).
     """
     n, r = B.shape
     M = precond if precond is not None else (lambda v: v)
@@ -70,7 +76,8 @@ def mbcg(
 
     iters = 0
     for i in range(max_iters):
-        if early_exit and bool(done.all()):
+        if early_exit and (all_done(done) if all_done is not None
+                           else bool(done.all())):
             break
         AP = matvec(P)
         pAp = torch.sum(P * AP, dim=0)

@@ -3,8 +3,8 @@ leading batch axis, and the split-R̂ / ESS diagnostics.
 
 Counterpart of ``gaussianprocessfundamentals_tpu/mcmc/hmc.py``:
 ``leapfrog`` (``:54``), ``hmc`` (``:70``), ``hmc_chains`` (``:139``),
-``potential_scale_reduction`` (``:206``) and ``effective_sample_size``
-(``:220``). The target is the unconstrained-space log posterior; warmup
+``hmc_chains_collective`` (``:162``), ``potential_scale_reduction``
+(``:206``) and ``effective_sample_size`` (``:220``). The target is the unconstrained-space log posterior; warmup
 adapts each chain's step size by dual averaging (Hoffman & Gelman 2014,
 Algorithm 5: γ 0.05, t₀ 10, κ 0.75, μ = log(10·ε₀)) towards the target
 acceptance, and sampling runs at exp(log ε̄).
@@ -18,9 +18,12 @@ step makes no host read. The random numbers come from a draw source
 indexed by transition, ``source(t) -> (normals [C, dim], uniforms [C])``
 (the momentum and the accept test); a ``torch.Generator`` on the chains'
 device fills one (:func:`generator_draws`), and the tests replay the JAX
-package's key schedule through one. The collective form
-(``hmc_chains_collective``, a ``pmean`` of the warmup acceptance across
-devices) is not ported yet.
+package's key schedule through one.
+
+The collective form runs one chain per rank of a mesh axis
+(:mod:`..parallel.meshes`): each warmup acceptance is averaged over the
+ranks by one all-reduce before dual averaging (the JAX package's
+``adapt_pmean_axis``), so every chain adapts the same step size.
 """
 from __future__ import annotations
 
@@ -135,9 +138,11 @@ def dual_averaging_update(log_eps_bar, h_bar, accept, t: float, mu: float,
 
 
 def _hmc(lpg, q, source, num_samples, num_warmup, num_leapfrog,
-         init_step_size, target_accept):
+         init_step_size, target_accept, accept_reduce=None):
     """HMC over C chains at once from flat positions q [C, dim]; returns
-    (flat samples [C, S, dim], accept [C, S], step size [C], lp [C, S])."""
+    (flat samples [C, S, dim], accept [C, S], step size [C], lp [C, S]).
+    ``accept_reduce`` maps each warmup acceptance before dual averaging
+    (the collective form's mean over the ranks)."""
     if num_leapfrog < 1:
         raise ValueError(f"num_leapfrog must be ≥ 1, got {num_leapfrog}")
     C = q.shape[0]
@@ -163,6 +168,8 @@ def _hmc(lpg, q, source, num_samples, num_warmup, num_leapfrog,
     log_eps_bar, h_bar = log_eps, torch.zeros_like(log_eps)
     for k in range(num_warmup):
         q, lp, g, accept_prob = kernel(k, q, lp, g, torch.exp(log_eps))
+        if accept_reduce is not None:
+            accept_prob = accept_reduce(accept_prob)
         log_eps, log_eps_bar, h_bar = dual_averaging_update(
             log_eps_bar, h_bar, accept_prob, k + 1.0, mu, target_accept)
     step_size = torch.exp(log_eps_bar)
@@ -207,6 +214,60 @@ def hmc(logprob_fn: Callable, q0: Any, generator, num_samples: int = 500,
         _source(generator, q), num_samples, num_warmup, num_leapfrog,
         init_step_size, target_accept)
     return HMCResult(unravel(qs[0]), accepts[0], step_size[0], lps[0])
+
+
+def gather_chains(tree, mesh, axis: str):
+    """Every rank's chains (leaves [c, ...], bool included) concatenated
+    along the chain axis in rank order, on every rank."""
+    from gaussianprocessfundamentals_tpu_torch.parallel.meshes import (
+        all_gather_rows,
+    )
+
+    def one(t):
+        if t.dtype == torch.bool:
+            return all_gather_rows(t.to(torch.uint8), mesh, axis).bool()
+        return all_gather_rows(t, mesh, axis)
+
+    return tree_map(one, tree)
+
+
+def rank_chain(q0s: Any, mesh, axis: str):
+    """This rank's chain of ``q0s`` (leaves [P, ...]) as a batch of one,
+    checking one chain per rank."""
+    P, i = mesh.size(axis), mesh.index(axis)
+    chains = ravel_tree(q0s, batch_ndim=1)[0].shape[0]
+    if chains != P:
+        raise ValueError(f"{chains} chains on a {axis} axis of {P} ranks: "
+                         "the collective form runs one chain per rank")
+    return tree_map(lambda l: l[i:i + 1], q0s)
+
+
+def hmc_chains_collective(logprob_fn: Callable, q0s: Any, generator, mesh,
+                          axis: str = "dp", num_samples: int = 500,
+                          num_warmup: int = 200, num_leapfrog: int = 16,
+                          init_step_size: float = 0.1,
+                          target_accept: float = 0.8) -> HMCResult:
+    """One chain per rank of ``axis`` (``q0s`` leaves [P, ...]; rank i runs
+    chain i), the warmup acceptance averaged over the ranks (one
+    all-reduce per warmup transition) before dual averaging, so all chains
+    share one collectively adapted step size. ``logprob_fn`` maps one
+    chain's tree to a scalar; ``generator`` is this rank's
+    ``torch.Generator`` or draw source ``t -> (normals [1, dim],
+    uniforms [1])``. Every rank returns all P chains, as ``hmc_chains``
+    would (leaves [P, num_samples, ...])."""
+    from gaussianprocessfundamentals_tpu_torch.parallel.meshes import (
+        all_reduce_mean,
+    )
+
+    q, unravel = ravel_tree(rank_chain(q0s, mesh, axis), batch_ndim=1)
+    qs, accepts, step_size, lps = _hmc(
+        value_and_grad(single_chain(logprob_fn), unravel), q,
+        _source(generator, q), num_samples, num_warmup, num_leapfrog,
+        init_step_size, target_accept,
+        accept_reduce=lambda a: all_reduce_mean(a, mesh, axis))
+    qs, accepts, step_size, lps = gather_chains(
+        (qs, accepts, step_size, lps), mesh, axis)
+    return HMCResult(unravel(qs), accepts, step_size, lps)
 
 
 # --- diagnostics -----------------------------------------------------------

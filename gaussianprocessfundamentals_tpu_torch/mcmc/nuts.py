@@ -3,8 +3,8 @@ leading batch axis run in lock step.
 
 Counterpart of ``gaussianprocessfundamentals_tpu/mcmc/nuts.py``:
 ``_nuts_kernel`` (``:79``), ``nuts`` (``:287``), ``nuts_resume``
-(``:383``), ``nuts_chains_resume`` (``:419``) and ``nuts_chains``
-(``:474``). The arithmetic is the JAX package's: multinomial progressive
+(``:383``), ``nuts_chains_resume`` (``:419``), ``nuts_chains_collective``
+(``:435``) and ``nuts_chains`` (``:474``). The arithmetic is the JAX package's: multinomial progressive
 sampling inside a subtree and biased sampling between trees (Betancourt
 2017), the binary-counter checkpoints for the sub-subtree U-turn checks
 (even leaf i stores at slot popcount(i); odd leaf i with t trailing ones
@@ -37,9 +37,12 @@ JAX package's key schedule through one.
 A chain is resumable from (last q, ε, inv_mass) (:func:`nuts_resume`):
 segments of a long chain continue with the adaptation frozen, the
 checkpoint/continue form of a chain. (The JAX package split its long
-chains so because one large TPU program crashed the worker.) The collective
-form (``nuts_chains_collective``, warmup acceptance averaged across
-devices) is not ported yet.
+chains so because one large TPU program crashed the worker.)
+
+The collective form (:func:`nuts_chains_collective`) runs one chain per
+rank of a mesh axis and averages each warmup acceptance over the ranks
+(one all-reduce per transition) before dual averaging. Each rank keeps its
+own tree depth: its per-doubling stop steers no collective.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ import torch
 from gaussianprocessfundamentals_tpu_torch.mcmc.hmc import (
     chain_axis,
     dual_averaging_update,
+    gather_chains,
+    rank_chain,
     select,
     single_chain,
     value_and_grad,
@@ -246,8 +251,10 @@ def _sample(lpg, max_depth, source, t0: int, num_samples: int, q, lp, g,
 
 
 def _nuts(lpg, q, source, num_samples, num_warmup, max_depth,
-          init_step_size, target_accept):
-    """Two-phase warmup then sampling over C chains from q [C, dim]."""
+          init_step_size, target_accept, accept_reduce=None):
+    """Two-phase warmup then sampling over C chains from q [C, dim].
+    ``accept_reduce`` maps each warmup acceptance before dual averaging
+    (the collective form's mean over the ranks)."""
     lp, g = lpg(q)
     mu = math.log(10.0 * init_step_size)
     n1 = max(num_warmup // 2, 1)
@@ -264,6 +271,8 @@ def _nuts(lpg, q, source, num_samples, num_warmup, max_depth,
                 lpg, max_depth, source(t0 + k), q, lp, g, torch.exp(log_eps),
                 inv_mass)
             doublings += d
+            if accept_reduce is not None:
+                accept = accept_reduce(accept)
             t = k + 1.0
             log_eps, log_eps_bar, h_bar = dual_averaging_update(
                 log_eps_bar, h_bar, accept, t, mu, target_accept)
@@ -315,6 +324,32 @@ def nuts_chains(logprob_fn: Callable, q0s: Any, generator,
         value_and_grad(logprob_fn, unravel), q,
         _source(generator, q, max_depth), num_samples, num_warmup, max_depth,
         init_step_size, target_accept)
+    return _result(rec, unravel, eps, inv_mass, doublings)
+
+
+def nuts_chains_collective(logprob_fn: Callable, q0s: Any, generator, mesh,
+                           axis: str = "dp", num_samples: int = 500,
+                           num_warmup: int = 300, max_depth: int = 8,
+                           init_step_size: float = 0.1,
+                           target_accept: float = 0.8) -> NUTSResult:
+    """One NUTS chain per rank of ``axis`` (``q0s`` leaves [P, ...]; rank i
+    runs chain i), each warmup acceptance averaged over the ranks before
+    dual averaging, so all chains share one collectively adapted step size
+    (each keeps its own mass). ``logprob_fn`` maps one chain's tree to a
+    scalar; ``generator`` is this rank's ``torch.Generator`` or draw source
+    ``t -> NUTSDraws`` of one chain. Every rank returns all P chains
+    (leaves [P, num_samples, ...]); ``doublings`` is this rank's."""
+    from gaussianprocessfundamentals_tpu_torch.parallel.meshes import (
+        all_reduce_mean,
+    )
+
+    q, unravel = ravel_tree(rank_chain(q0s, mesh, axis), batch_ndim=1)
+    rec, eps, inv_mass, doublings = _nuts(
+        value_and_grad(single_chain(logprob_fn), unravel), q,
+        _source(generator, q, max_depth), num_samples, num_warmup, max_depth,
+        init_step_size, target_accept,
+        accept_reduce=lambda a: all_reduce_mean(a, mesh, axis))
+    rec, eps, inv_mass = gather_chains((rec, eps, inv_mass), mesh, axis)
     return _result(rec, unravel, eps, inv_mass, doublings)
 
 

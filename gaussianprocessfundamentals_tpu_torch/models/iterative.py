@@ -24,9 +24,20 @@ The NLL's probes are arguments of :func:`_core_impl` (u [n, s] and
 w [m, s] standard-normal draws); the public functions draw them from an
 explicit ``torch.Generator``. The JAX package drew them from a key inside
 its core, a stream torch cannot replay, so the parity tests hand both
-cores the same numbers. Not ported: the mesh branch, ``block`` and
-``scan_chunk`` (TPU program-size knobs), the per-step fallback and the
-vmapped-restart program; restarts run one after another.
+cores the same numbers. Not ported: ``block`` and ``scan_chunk`` (TPU
+program-size knobs), the per-step fallback and the vmapped-restart
+program; restarts run one after another.
+
+Under a ``mesh`` (:mod:`..parallel.meshes`, one process per rank; JAX
+``:194-275``, ``:865-970``) every Kₙ·V is the mesh-sharded product
+:func:`..parallel.mesh_matvec.mesh_matvec_for` (each rank's row panel
+through K1 or K3, then one all-gather) and the gradient's contraction
+:func:`..parallel.mesh_matvec.mesh_lowrank_vjp_for` (K2 or K4 on each
+panel, then one all-reduce); ``materialize=True`` holds each rank's
+resident K(x_loc, x) panel instead. The preconditioner, the probes and the
+CG state are replicated: every rank draws the same probes from the same
+seed. The decisions that steer a collective are settled across the ranks:
+CG's early exit and the step guard by one all-reduce each.
 
 Numerics that differ from the JAX package, because the H100 has native
 float64 and fast batched QR:
@@ -71,6 +82,18 @@ from gaussianprocessfundamentals_tpu_torch.ops.cuda_lrvjp import (
     fused_lowrank_vjp_for,
 )
 from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import grads_or_zeros
+from gaussianprocessfundamentals_tpu_torch.parallel.mesh_matvec import (
+    mesh_lowrank_vjp_for,
+    mesh_matvec_for,
+)
+from gaussianprocessfundamentals_tpu_torch.parallel.meshes import (
+    agree_all_done,
+    agree_any,
+    all_gather_rows,
+    all_reduce_tree,
+    pad_to,
+    row_range,
+)
 from gaussianprocessfundamentals_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
@@ -157,19 +180,49 @@ def cotangent_factor(cols):
     return torch.cat(cols, dim=1)
 
 
-def _cot_vjp(kernel, x, U, W, dense_gram_vjp):
+def _cot_vjp(kernel, x, U, W, dense_gram_vjp, mesh=None,
+             mesh_axis: str = "tp"):
     """Contract the low-rank cotangent U·Wᵀ with ∂K/∂θ: through the Gram's
-    own autograd graph when K is materialised, else K2 on a card or the
-    plain streamed VJP on the CPU."""
+    own autograd graph when K (or the rank's panel of it) is materialised,
+    under a mesh through the sharded panel contraction, else K2 on a card
+    or the plain streamed VJP on the CPU."""
     if dense_gram_vjp is not None:
-        return dense_gram_vjp(U @ W.T)
+        return dense_gram_vjp(U, W)
+    if mesh is not None:
+        return mesh_lowrank_vjp_for(kernel, x, mesh, mesh_axis)(U, W)
     return fused_lowrank_vjp_for(kernel, x)(U, W)
+
+
+def _resident_panel(kernel, x, noise, kp, leaves, mesh, mesh_axis):
+    """(matvec, dense_gram_vjp) from K held whole, or under a mesh from
+    this rank's resident row panel K(x_loc, x): its products are
+    all-gathered and its parameter gradients all-reduced."""
+    if mesh is None:
+        x_loc, start, stop = x, 0, x.shape[0]
+    else:
+        start, stop, rows = row_range(x.shape[0], mesh, mesh_axis)
+        x_loc = x[start:stop]
+    with torch.enable_grad():
+        K = kernel.gram(x_loc, x)
+    Kd = K.detach()
+
+    def matvec(V):
+        if mesh is None:
+            return Kd @ V + noise * V
+        out = all_gather_rows(pad_to(Kd @ V, rows), mesh, mesh_axis)
+        return out[:x.shape[0]] + noise * V
+
+    def dense_gram_vjp(U, W):
+        g = tree_unflatten(kp, grads_or_zeros(K, leaves, U[start:stop] @ W.T))
+        return g if mesh is None else all_reduce_tree(g, mesh, mesh_axis)
+
+    return matvec, dense_gram_vjp
 
 
 def _core_impl(kernel, x, y, noise, u, w=None, max_iters: int = 100,
                tol: float = 1e-6, precond_m: int = 128,
                early_exit: bool = True, materialize: Optional[bool] = None,
-               mean=None):
+               mean=None, mesh=None, mesh_axis: str = "tp"):
     """(data_fit, log_P, alphas, betas, z_weights, grad_params, grad_noise,
     grad_mean, resid) for the kernel's and mean's installed parameters,
     without forming K above ``_MATERIALIZE_MAX_N`` rows.
@@ -186,6 +239,10 @@ def _core_impl(kernel, x, y, noise, u, w=None, max_iters: int = 100,
     residual ‖r‖/‖b‖ per CG column; ``grad_mean`` = −(∂m/∂mp)ᵀα comes from
     the same solve. The solves run without autograd; only the Gram VJP,
     the diagonal term and the mean's VJP differentiate.
+
+    With a ``mesh`` the products and the contraction are sharded over
+    ``mesh_axis`` (streamed by default; ``materialize=True`` holds each
+    rank's K panel) and every output is replicated.
     """
     n = x.shape[0]
     s = u.shape[1]
@@ -195,21 +252,16 @@ def _core_impl(kernel, x, y, noise, u, w=None, max_iters: int = 100,
             m_of_x = mean.mean(x)
         y = y - m_of_x.detach()
     if materialize is None:
-        materialize = n <= _MATERIALIZE_MAX_N
+        materialize = mesh is None and n <= _MATERIALIZE_MAX_N
     with kernel.differentiable() as kp:
         leaves = tree_leaves(kp)
         dense_gram_vjp = None
         with torch.no_grad():
             if materialize:
-                with torch.enable_grad():
-                    K = kernel.gram(x, x)
-                Kd = K.detach()
-                matvec = lambda V: Kd @ V + noise * V  # noqa: E731
-                dense_gram_vjp = lambda cot: tree_unflatten(  # noqa: E731
-                    kp, grads_or_zeros(K, leaves, cot))
+                matvec, dense_gram_vjp = _resident_panel(
+                    kernel, x, noise, kp, leaves, mesh, mesh_axis)
             else:
-                kmv = fused_matvec_for(kernel, x)
-                matvec = lambda V: kmv(V) + noise * V  # noqa: E731
+                matvec = _noised_matvec(kernel, x, noise, mesh, mesh_axis)
 
             if precond_m > 0:
                 m = min(precond_m, n)
@@ -226,7 +278,8 @@ def _core_impl(kernel, x, y, noise, u, w=None, max_iters: int = 100,
 
             B = torch.cat([y[:, None], z], dim=1)
             res = mbcg(matvec, B, max_iters=max_iters, tol=tol,
-                       precond=P_inv, early_exit=early_exit)
+                       precond=P_inv, early_exit=early_exit,
+                       all_done=_all_done(mesh))
             alpha = res.solves[:, 0]
             zhat = res.solves[:, 1:]
             col_norms = torch.linalg.norm(B, dim=0)
@@ -250,7 +303,8 @@ def _core_impl(kernel, x, y, noise, u, w=None, max_iters: int = 100,
                 trace_est = torch.mean(torch.sum(zt * zhat, dim=0))
             grad_noise = 0.5 * (trace_est - torch.dot(alpha, alpha))
 
-        grad_params = _cot_vjp(kernel, x, U, W, dense_gram_vjp)
+        grad_params = _cot_vjp(kernel, x, U, W, dense_gram_vjp, mesh,
+                               mesh_axis)
         if precond_m > 0:
             # the diagonal I/(2σ²) term contracts to (1/2σ²)·∂tr(K)/∂θ
             with torch.enable_grad():
@@ -283,18 +337,21 @@ def iterative_nll_and_grad(
     kernel, x, y, noise, generator=None, num_probes: int = 8,
     max_iters: int = 100, tol: float = 1e-6, precond_m: int = 128,
     early_exit: bool = True, materialize: Optional[bool] = None, mean=None,
+    mesh=None, mesh_axis: str = "tp",
 ):
     """(nll, grad_kernel_params, grad_noise, resid[, grad_mean]) of the
     exact-GP NLL at the kernel's and mean's installed parameters, by mBCG
     and SLQ; ``grad_mean`` is appended iff ``mean`` is given. The probes
-    come from ``generator``. Everything stays on x's device: the SLQ
+    come from ``generator`` (under a ``mesh`` every rank must pass a
+    generator in the same state). Everything stays on x's device: the SLQ
     eigensolves are a batched float64 ``eigh`` there."""
     n = x.shape[0]
     m = min(precond_m, n) if precond_m > 0 else 0
     u, w = draw_probes(x, num_probes, m, generator)
     (data_fit, log_P, al, be, zw, grad_params, grad_noise, grad_mean,
      resid) = _core_impl(kernel, x, y, noise, u, w, max_iters, tol,
-                         precond_m, early_exit, materialize, mean)
+                         precond_m, early_exit, materialize, mean, mesh,
+                         mesh_axis)
     logdet = log_P.double() + slq_logdet(al, be, zw)
     nll = (0.5 * data_fit.double() + 0.5 * logdet
            + 0.5 * n * LOG_2PI).to(x.dtype)
@@ -303,19 +360,21 @@ def iterative_nll_and_grad(
     return nll, grad_params, grad_noise, resid
 
 
-def _step_guard(nll, g_u, resid, resid_guard):
+def _step_guard(nll, g_u, resid, resid_guard, mesh=None):
     """True (a device bool) when a step must be skipped: a non-finite
     gradient or NLL, or with ``resid_guard`` a median relative CG residual
     above it. The median, not the max: at large n one probe column always
     sits at its float32 floor, while the runaway into an ill-conditioned
-    region shows as most columns degrading at once."""
+    region shows as most columns degrading at once. Under a ``mesh`` the
+    step is skipped on every rank when any rank would skip it, so the
+    replicated parameters stay equal."""
     finite = torch.stack([torch.isfinite(g).all() for g in tree_leaves(g_u)]
                          + [torch.isfinite(nll)])
     bad = ~finite.all()
     if resid_guard is not None:
         bad = (bad | ~torch.isfinite(resid).all()
                | ~(torch.quantile(resid, 0.5) <= resid_guard))
-    return bad
+    return bad if mesh is None else agree_any(bad, mesh)
 
 
 def _adam_iterative(kernel, mean, x, y, u0, generator, steps, lr,
@@ -356,7 +415,7 @@ def _adam_iterative(kernel, mean, x, y, u0, generator, steps, lr,
         if mean is not None:
             g_u["mean"] = tree_map(chain, g_mp, mp, mpos)
         g_u = tree_map(lambda _, g: g, u, g_u)  # u's leaf order
-        bad = _step_guard(nll, g_u, resid, resid_guard)
+        bad = _step_guard(nll, g_u, resid, resid_guard, core_kw.get("mesh"))
         before = [p.detach().clone() for p in leaves]
         for p, g in zip(leaves, tree_leaves(g_u)):
             p.grad = torch.where(bad, torch.zeros_like(g), g).to(p.dtype)
@@ -380,7 +439,8 @@ def fit_iterative(
     precond_m: int = 128, early_exit: bool = True,
     resid_guard: Optional[float] = None, materialize: Optional[bool] = None,
     return_diagnostics: bool = False, init_generator=None, mean=None,
-    enforce_bounds: bool = False, restarts: int = 0,
+    enforce_bounds: bool = False, restarts: int = 0, mesh=None,
+    mesh_axis: str = "tp",
 ):
     """Adam over the iterative NLL: exact-GP fitting at N = 100k+ scale.
 
@@ -401,9 +461,20 @@ def fit_iterative(
     * ``restarts > 0`` runs that many extra fits from random initial
       points inside the bounds, one after another, each on the same probe
       stream; the best final NLL wins, NaN-safe.
+    * ``mesh`` shards every product over ``mesh_axis`` (:func:`_core_impl`);
+      each rank calls this with the same data and a generator in the same
+      state. Restarts are refused there, as in the JAX package: run them as
+      the dp axis (``parallel.sharded.restart_sharded_fit_step``) or one
+      after another (``fit.fit`` does).
     """
     from gaussianprocessfundamentals_tpu_torch.fit.fit import bounds_projection
 
+    if restarts > 0 and mesh is not None:
+        raise ValueError(
+            "fit_iterative(restarts>0, mesh=...): restarts and mesh sharding "
+            "compose as a dp×tp mesh; use "
+            "parallel.sharded.restart_sharded_fit_step or run restarts "
+            "sequentially")
     n = x.shape[0]
     if xrange is None:
         xrange = torch.stack([x.min(dim=0).values, x.max(dim=0).values],
@@ -430,7 +501,7 @@ def fit_iterative(
 
     core_kw = dict(num_probes=num_probes, max_iters=max_iters, tol=tol,
                    precond_m=precond_m, early_exit=early_exit,
-                   materialize=materialize)
+                   materialize=materialize, mesh=mesh, mesh_axis=mesh_axis)
     probe_state = generator.get_state()
     best = None
     for i in range(restarts + 1):
@@ -471,10 +542,16 @@ def _posterior_precond(kernel, x, noise, precond_m):
     return P_inv
 
 
-def _posterior_matvec(kernel, x, noise):
-    """Kₙ·V = (K + σ²I)·V through K1 (or its plain version on the CPU)."""
-    kmv = fused_matvec_for(kernel, x)
+def _noised_matvec(kernel, x, noise, mesh=None, mesh_axis: str = "tp"):
+    """Kₙ·V = (K + σ²I)·V through K1 or K3 (their plain version on the
+    CPU), over the mesh when one is given."""
+    kmv = (fused_matvec_for(kernel, x) if mesh is None
+           else mesh_matvec_for(kernel, x, mesh, mesh_axis))
     return lambda V: kmv(V) + noise * V
+
+
+def _all_done(mesh):
+    return None if mesh is None else agree_all_done(mesh)
 
 
 def _true_rel_resid(KnX, B) -> torch.Tensor:
@@ -488,12 +565,13 @@ def _true_rel_resid(KnX, B) -> torch.Tensor:
 @torch.no_grad()
 def iterative_posterior_mean(
     kernel, x, y, x_test, noise, max_iters: int = 200, tol: float = 1e-8,
-    precond_m: int = 128,
+    precond_m: int = 128, mesh=None, mesh_axis: str = "tp",
 ):
-    """μ* = K(x_test, x)·Kₙ⁻¹y with a preconditioned CG solve."""
+    """μ* = K(x_test, x)·Kₙ⁻¹y with a preconditioned CG solve (its products
+    over the mesh when one is given)."""
     noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device)
-    res = mbcg(_posterior_matvec(kernel, x, noise), y[:, None],
-               max_iters=max_iters, tol=tol,
+    res = mbcg(_noised_matvec(kernel, x, noise, mesh, mesh_axis),
+               y[:, None], max_iters=max_iters, tol=tol,
                precond=_posterior_precond(kernel, x, noise, precond_m))
     return fused_matvec_cross_for(kernel, x_test, x)(res.solves[:, 0])
 
@@ -526,24 +604,26 @@ def _variance_energy_f64(kernel, x_test, K_s, V, KnV):
 @torch.no_grad()
 def iterative_posterior(
     kernel, x, y, x_test, noise, max_iters: int = 200, tol: float = 1e-8,
-    precond_m: int = 128,
+    precond_m: int = 128, mesh=None, mesh_axis: str = "tp",
 ):
     """(μ*, var*) from one mBCG solve against [y | K_s]; variances in the
-    energy form at the price of one extra Kₙ·V."""
+    energy form at the price of one extra Kₙ·V (its products over the mesh
+    when one is given)."""
     noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device)
-    matvec = _posterior_matvec(kernel, x, noise)
+    matvec = _noised_matvec(kernel, x, noise, mesh, mesh_axis)
     K_s = dense_gram_for(kernel, x, x_test)  # [n, t]
     B = torch.cat([y[:, None], K_s], dim=1)
     res = mbcg(matvec, B, max_iters=max_iters, tol=tol,
                precond=_posterior_precond(kernel, x, noise, precond_m),
-               early_exit=True)
+               early_exit=True, all_done=_all_done(mesh))
     alpha = res.solves[:, 0]
     V = res.solves[:, 1:]
     var, _ = _variance_energy_f64(kernel, x_test, K_s, V, matvec(V))
     return K_s.T @ alpha, var
 
 
-def _posterior_setup(kernel, x, y, noise, m, max_iters, tol):
+def _posterior_setup(kernel, x, y, noise, m, max_iters, tol, mesh=None,
+                     mesh_axis: str = "tp"):
     """Preconditioner build + the single y-solve. ``m == 0`` degrades to
     P = σ²I (a zero basis)."""
     n = x.shape[0]
@@ -553,22 +633,23 @@ def _posterior_setup(kernel, x, y, noise, m, max_iters, tol):
         W_b = torch.zeros((n, 1), dtype=x.dtype, device=x.device)
         d_rng = torch.zeros((1,), dtype=x.dtype, device=x.device)
         P_inv = functools.partial(apply_P_inv, W_b, d_rng, noise)
-    matvec = _posterior_matvec(kernel, x, noise)
+    matvec = _noised_matvec(kernel, x, noise, mesh, mesh_axis)
     B = y[:, None]
     res = mbcg(matvec, B, max_iters=max_iters, tol=tol, precond=P_inv,
-               early_exit=True)
+               early_exit=True, all_done=_all_done(mesh))
     alpha = res.solves
     return (alpha[:, 0], W_b, d_rng, res.iters,
             _true_rel_resid(matvec(alpha), B))
 
 
-def _posterior_chunk(kernel, x, alpha, xt, noise, W_b, d_rng, max_iters, tol):
+def _posterior_chunk(kernel, x, alpha, xt, noise, W_b, d_rng, max_iters, tol,
+                     mesh=None, mesh_axis: str = "tp"):
     """One test-point chunk, reusing the prebuilt basis and y-solve."""
-    matvec = _posterior_matvec(kernel, x, noise)
+    matvec = _noised_matvec(kernel, x, noise, mesh, mesh_axis)
     K_s = dense_gram_for(kernel, x, xt)  # [n, c]
     res = mbcg(matvec, K_s, max_iters=max_iters, tol=tol,
                precond=functools.partial(apply_P_inv, W_b, d_rng, noise),
-               early_exit=True)
+               early_exit=True, all_done=_all_done(mesh))
     V = res.solves
     KnV = matvec(V)
     var, floor = _variance_energy_f64(kernel, xt, K_s, V, KnV)
@@ -579,6 +660,7 @@ def _posterior_chunk(kernel, x, alpha, xt, noise, W_b, d_rng, max_iters, tol):
 def iterative_posterior_chunked(
     kernel, x, y, x_test, noise, max_iters: int = 100, tol: float = 1e-6,
     precond_m: int = 128, chunk: int = 256, stats: Optional[dict] = None,
+    mesh=None, mesh_axis: str = "tp",
 ):
     """(μ*, var*) for large n·t: the preconditioner and the y-solve are
     built once, then test points are solved in chunks of ``chunk`` columns
@@ -590,12 +672,14 @@ def iterative_posterior_chunked(
     entry per chunk) the CG iterations (``"iters"``) and the largest true
     relative residual ‖Kₙx − b‖/‖b‖ over its columns (``"rel_resid"``).
     That costs one extra Kₙ·α product; the chunks reuse the variance's
-    Kₙ·V.
+    Kₙ·V. With a ``mesh`` every Kₙ·V is sharded over ``mesh_axis``
+    (prediction scales over the ranks as training does); K_s and the
+    outputs are replicated.
     """
     noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device)
     m = min(precond_m, x.shape[0]) if precond_m > 0 else 0
     alpha, W_b, d_rng, it, rel = _posterior_setup(
-        kernel, x, y, noise, m, max_iters, tol
+        kernel, x, y, noise, m, max_iters, tol, mesh, mesh_axis
     )
     iters, rels = [it], [rel.max()]
     t = x_test.shape[0]
@@ -607,7 +691,8 @@ def iterative_posterior_chunked(
         if pad:
             xt = torch.cat([xt, xt[-1:].expand((pad,) + xt.shape[1:])])
         mu_c, var_c, floor_c, it, rel = _posterior_chunk(
-            kernel, x, alpha, xt, noise, W_b, d_rng, max_iters, tol
+            kernel, x, alpha, xt, noise, W_b, d_rng, max_iters, tol, mesh,
+            mesh_axis
         )
         keep = cw - pad
         mus.append(mu_c[:keep])

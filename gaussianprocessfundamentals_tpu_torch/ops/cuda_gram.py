@@ -223,12 +223,13 @@ def gram_route(kernel, d: int) -> str:
                   "K1", "K3")
 
 
-def fused_matvec_cross_for(kernel, x1, x2):
+def fused_matvec_cross_for(kernel, x1, x2, block: int = 2048):
     """A ``V -> K(x1, x2) @ V`` closure for the device of x1: the plain
     row-panel version on the CPU; on a card the version
     :func:`gram_route` picks: K1 for the leaves it covers, K3
     (:func:`.cuda_expr.expr_matvec_cross_for`) for the expressions its
     generated code covers, the plain version for every other covariance.
+    ``block`` is the plain version's panel height.
 
     K1's hyperparameters are read to the host once here, not per call.
     ARD SE is covered by scaling x by 1/ℓ first, as ``gram`` does.
@@ -240,7 +241,7 @@ def fused_matvec_cross_for(kernel, x1, x2):
     else:
         raise NotImplementedError(f"no Gram·V route for device {x1.device}")
     if route == "plain":
-        return lambda V: streamed_gram_matvec_cross(kernel, x1, x2, V)
+        return lambda V: streamed_gram_matvec_cross(kernel, x1, x2, V, block)
     if route == "K3":
         return expr_matvec_cross_for(kernel, x1, x2)
     kind = _k1_kind(kernel, x1.shape[-1])

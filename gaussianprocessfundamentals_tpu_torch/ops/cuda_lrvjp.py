@@ -207,7 +207,7 @@ def vjp_route(kernel, d: int) -> str:
     return _route(_k2_kind(kernel, d) is not None, kernel, d, "K2", "K4")
 
 
-def fused_lowrank_vjp_cross_for(kernel, x1, x2):
+def fused_lowrank_vjp_cross_for(kernel, x1, x2, block: int = 2048):
     """A ``(U, W) -> grads`` closure for the device of x1, giving the
     gradient of Σ(UWᵀ)∘K(x1, x2) with respect to the kernel's
     hyperparameters as a tree shaped like its params: the plain streamed
@@ -217,6 +217,7 @@ def fused_lowrank_vjp_cross_for(kernel, x1, x2):
     generated code covers, the plain version for every other covariance.
 
     K2's hyperparameters are read to the host once here, not per call.
+    ``block`` is the plain version's panel height.
     """
     if x1.device.type == "cpu":
         route = "plain"
@@ -225,7 +226,7 @@ def fused_lowrank_vjp_cross_for(kernel, x1, x2):
     else:
         raise NotImplementedError(f"no low-rank VJP route for device {x1.device}")
     if route == "plain":
-        return lambda U, W: lowrank_gram_vjp_cross(kernel, x1, x2, U, W)
+        return lambda U, W: lowrank_gram_vjp_cross(kernel, x1, x2, U, W, block)
     if route == "K4":
         return expr_lowrank_vjp_cross_for(kernel, x1, x2)
     kind = _k2_kind(kernel, x1.shape[-1])

@@ -1,6 +1,8 @@
-"""Materialisation-free Gram products in plain PyTorch.
+"""Materialisation-free Gram products in plain PyTorch, and the routers
+that pick a kernel for them.
 
-Counterpart of ``streamed_gram_matvec`` (``:78``),
+Counterpart of ``gram_matvec`` (``:36``), ``gram_matvec_cross``
+(``:98``), ``streamed_gram_matvec`` (``:78``),
 ``streamed_gram_matvec_cross`` (``:123``), ``lowrank_gram_vjp`` (``:205``)
 and ``lowrank_gram_vjp_cross`` (``:233``) of
 ``gaussianprocessfundamentals_tpu/ops/gram_matvec.py``: K(x1, x2)·V and the
@@ -8,6 +10,17 @@ gradient of Σ(UWᵀ)∘K(x1, x2) built in [block, n2] row panels, each used and
 dropped, so memory is O(block·n2) and K never exists whole. This is the CPU
 path of the port and the plain version the CUDA kernels of
 :mod:`.cuda_gram` (K1) and :mod:`.cuda_lrvjp` (K2) are held against.
+
+The routers :func:`gram_matvec` and :func:`gram_matvec_cross` hand a
+product to the version :func:`.cuda_gram.fused_matvec_cross_for` picks for
+the device: K1 for SE and Matérn leaves, K3 for the composite expressions
+its generated code covers, this module's streamed version for every other
+covariance and on the CPU. They keep the JAX package's names for its
+callers; the port's own paths (the iterative core, the mesh products) hold
+the closure :func:`.cuda_gram.fused_matvec_cross_for` returns, which
+resolves the route once per operator. The JAX package's
+``GPF_FORCE_FUSED`` and ``GPF_SYM`` switches are not ported: on a card the
+kernel is the product.
 """
 from __future__ import annotations
 
@@ -38,6 +51,24 @@ def streamed_gram_matvec(
 ) -> torch.Tensor:
     """K(x, x) @ V in row panels."""
     return streamed_gram_matvec_cross(kernel, x, x, V, block)
+
+
+def gram_matvec_cross(kernel, x1: torch.Tensor, x2: torch.Tensor,
+                      V: torch.Tensor, block: int = 2048) -> torch.Tensor:
+    """K(x1, x2) @ V through the version the device takes (K1, K3, or the
+    streamed plain version in [block, n2] panels); the unit of work of the
+    mesh-sharded matvec."""
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
+        fused_matvec_cross_for,
+    )
+
+    return fused_matvec_cross_for(kernel, x1, x2, block)(V)
+
+
+def gram_matvec(kernel, x: torch.Tensor, V: torch.Tensor, block: int = 2048
+                ) -> torch.Tensor:
+    """K(x, x) @ V: square form of :func:`gram_matvec_cross`."""
+    return gram_matvec_cross(kernel, x, x, V, block)
 
 
 def grads_or_zeros(out: torch.Tensor, leaves, grad_outputs=None):

@@ -1028,3 +1028,63 @@ def test_nuts_chains_read_the_host_once_per_doubling(cuda):
         "called a synchronizing CUDA operation") for w in caught)
     assert res.doublings >= 20 and syncs == res.doublings
     assert bool(torch.isfinite(res.log_probs).all())
+
+
+# --- the multi-GPU slice on one card ---------------------------------------
+
+@pytest.fixture(scope="module")
+def two_ranks_on_card():
+    """2 gloo ranks sharing the card (``parallel.meshes.launch``), each
+    running ``torch_parallel_ranks.card_cases``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import torch_parallel_ranks
+    from gaussianprocessfundamentals_tpu_torch.parallel.meshes import launch
+
+    cuda_gram._lib()
+    cuda_dense_gram._lib()  # built here, loaded by the ranks
+    return launch(torch_parallel_ranks.card_cases, 2, backend="gloo",
+                  device="cuda", timeout=300)
+
+
+def test_mesh_gram_matvec_on_two_gloo_ranks_matches_k1(cuda, two_ranks_on_card):
+    """Each rank's panel through K1, then the all-gather: the single-process
+    K1 product, within K3_RTOL (5e-5) of max|ref|."""
+    import torch_parallel_ranks
+
+    x, V, k = torch_parallel_ranks.card_inputs()
+    ref = cuda_gram.fused_matvec_for(k, x)(V).cpu()
+    for r in two_ranks_on_card:
+        assert r["backend"] == "gloo" and r["jax_free"]
+        assert r["k1"] == 1
+        assert float((r["mv"] - ref).abs().max()) <= 5e-5 * float(
+            ref.abs().max())
+
+
+def test_cyclic_k5_block_rows_carry_the_noise_on_the_global_diagonal(
+        cuda, two_ranks_on_card):
+    """The ranks' cyclic block-rows built by K5 (one launch each) with
+    σ² + jitter at each block-row's own columns equal the rows of the
+    square build with it on its diagonal (2e-5·max|ref|)."""
+    import torch_parallel_ranks as tpr
+    from gaussianprocessfundamentals_tpu_torch.parallel.block_cholesky import (
+        to_cyclic_blocks,
+    )
+
+    x, _, k = tpr.card_inputs()
+    xs = x[:tpr.CARD_N_BC]
+    ref = to_cyclic_blocks(cuda_dense_gram.dense_gram_for(
+        k, xs, xs, tpr.CARD_DIAG), tpr.CARD_BLOCK, 2).cpu()
+    for r in two_ranks_on_card:
+        assert r["k5"] == 1
+        assert float((r["panel"] - ref).abs().max()) <= 2e-5 * float(
+            ref.abs().max())
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda):
+    from gaussianprocessfundamentals_tpu_torch.parallel import meshes
+
+    too_many = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="NCCL takes one rank per GPU"):
+        meshes.launch(meshes.check_backend, too_many, backend="nccl",
+                      device="cuda")
