@@ -87,8 +87,10 @@ non-zero):
     series at N = 100,000 (x and y min-max normalised), the knobs of
     phase 8: NLL history, skipped steps, fitted parameters, peak memory
     (≤ 8 GB), 25 K3 launches and 1 K4 launch per step;
-15. composite serving main path: ``.posterior`` of that fit at 1,000
-    points midway between training points: CG iterations and true
+15. composite serving main path: ``.posterior`` of that fit at 256
+    points midway between training points (1,000 until the smoke outgrew
+    its time limit; each chunk of 256 is one more solve at the CG cap):
+    CG iterations and true
     residual (≤ 1e-3) per solve, K3 launches, variances ≥ 0, mean RMSE
     against the noise-free series (≤ 0.05 normalised);
 16. K3 at r = 1, 9 and 256 (the y-solve, the fit's CG, a posterior chunk)
@@ -153,7 +155,7 @@ non-zero):
     same problem on the chunked route, which reports each solve's CG
     iterations and true residual);
 25. the 200k story: ``GaussianProcess(SE~s, Constant + Linear).fit(
-    method="auto")`` at N = 200,000 (a float32 K would be 160 GB), 30 Adam
+    method="auto")`` at N = 200,000 (a float32 K would be 160 GB), 10 Adam
     steps with phase 8's knobs, then ``.posterior`` at 1,000 points on the
     chunked route: NLL history, skipped steps (none allowed), recovered
     noise and mean, CG residuals (≤ 1e-3), RMSE against the noise-free
@@ -189,7 +191,8 @@ non-zero):
     held against its plain version at both shapes;
 30. example 10: ``greedy_kernel_search`` on ``data/d2_mauna_loa.csv``
     (read by the port's ``load_named``, min-max normalised, the first 80%
-    for training), max_depth=2, restarts=2, steps=150, in float64: BIC
+    for training), max_depth=2, restarts=1 (the example's 2, cut for the
+    time limit), steps=150, in float64: BIC
     trace, structure, candidates, wall, held-out MSE through the facade's
     posterior; the score ≤ the best base kernel's, every BIC finite;
 31. 8 copies of one 4,000-row problem through ``fit(method="auto")`` as
@@ -206,8 +209,9 @@ non-zero):
     transition (the synchronisations counted under
     ``set_sync_debug_mode("warn")`` against the doublings), split-R̂ and
     ESS per parameter, peak memory; gated (``NUTS_*``), and held against
-    ``hmc_chains`` (300 + 100, 16 leapfrogs) on the same target; one
-    transition on the card against the CPU with the same draws; one under
+    ``hmc_chains`` (100 + 100, 16 leapfrogs) on the same target; one
+    transition at max_depth 4 (cut for the CPU's time) on the card against
+    the CPU with the same fixed draws, and the same transition under
     ``gpt.trace``: device busy share, launches and ms per leapfrog;
 33. ``compat.get_metric`` for every family at n = 4,096 in float32 against
     float64 on the card (``M11_RTOL``), a ``DataInput`` split and
@@ -215,9 +219,11 @@ non-zero):
 34-36. the multi-GPU slice, each over P = 2 gloo ranks sharing the card
     (NCCL refuses two ranks on one GPU) and P = 1 over NCCL, one spawn
     (``parallel.meshes.launch``) of ``_rank_multi_gpu`` per configuration,
-    the gates taken here with each limit beside its reading:
+    the two spawns at the same time (for the time limit; each rank's times
+    include the other spawn's work on the card), the gates taken here with
+    each limit beside its reading:
     34. ``fit_iterative(mesh=…)`` at N = 200,000 (phase 25's data and
-        knobs, the constant + linear mean), 5 Adam steps, then
+        knobs, the constant + linear mean), 2 Adam steps, then
         ``iterative_posterior_chunked(mesh=…)`` at 256 points: NLL history
         within 1e-3 and parameters within 1e-2 of the same steps on the
         same probes in this process, P = 1 NCCL within 1e-5 of it, phase
@@ -242,7 +248,12 @@ non-zero):
         ``nuts_chains_collective`` (100 + 100, max_depth 6), one chain per
         rank: the bitwise-same step size on every rank, finite log-probs,
         accept in [0.6, 0.95], and at P = 1 the result of ``hmc_chains``
-        / ``nuts_chains`` with C = 1 on the same draws within 1e-8.
+        / ``nuts_chains`` with C = 1 on the same draws within 1e-8;
+37. plain functions of ``ops/gram_matvec.py`` on the card (run after phase 5):
+    ``streamed_gram_matvec_symmetric`` (SE, ℓ 0.1, n = 32,768, the JAX
+    package's ``_SYM_MIN_N``, r = 9, its 4,096-row tiles) against K1's
+    product within 1e-4·max|K·V|, its time beside K1's (CUDA events, in
+    turns); ``gram_diag_sum`` against ``kernel.diag(x).sum()``.
 
 Each path's launch counts (all six kernels) are set to 0 just before it
 is driven and read just after. The second-to-last line, after the card's
@@ -290,6 +301,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 N_MAIN = 100_000
 T_MAIN = 1_000
 NOISE = 1e-2
@@ -612,6 +624,53 @@ def phase_main() -> dict:
     worst = _worse(worst, _check_against_plain(
         _chain_rows(x), x, V, LENGTHSCALE, 1.0, "se", K3_RTOL, vs_f64=True))
     return {"counts": counts, "times": times, "worst": worst}
+
+
+N_SYM = 32_768  # the JAX package's _SYM_MIN_N (ops/gram_matvec.py:196)
+SYM_RTOL = 1e-4
+
+
+def phase_plain_functions() -> None:
+    """Phase 37 (see the module docstring)."""
+    from gaussianprocessfundamentals_tpu_torch.ops.cuda_gram import (
+        fused_gram_matvec,
+    )
+    from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
+        gram_diag_sum,
+        streamed_gram_matvec_symmetric,
+    )
+
+    x, _ = _data(N_SYM, seed=37, device="cuda")
+    V = torch.randn(N_SYM, R_CG,
+                    generator=torch.Generator().manual_seed(37)).cuda()
+    kernel = _se_kernel().cuda()
+
+    def k1():
+        return fused_gram_matvec(x, V, LENGTHSCALE, 1.0, "se")
+
+    def sym():
+        return streamed_gram_matvec_symmetric(kernel, x, V)
+
+    ref, got = k1(), sym()
+    err = float((got - ref).abs().max())
+    lim = SYM_RTOL * float(ref.abs().max())
+    k1_ms, sym_ms = _abba_ms(k1, sym, reps=3)
+    tr = float(gram_diag_sum(kernel, x))
+    tr_ref = float(kernel.diag(x).sum())
+    nb = -(-N_SYM // 4096)
+    log(f"[plain-fns] streamed_gram_matvec_symmetric SE n={N_SYM} r={R_CG} "
+        f"({nb * (nb + 1) // 2} of {nb * nb} tiles of 4096 rows): max|diff| "
+        f"from K1 {err:.3e} (limit "
+        f"{lim:.3e} = {SYM_RTOL:g} x max|K V|); {sym_ms:.3f} ms against K1's "
+        f"{k1_ms:.3f} ms; gram_diag_sum {tr:.6g} (diag sum {tr_ref:.6g})")
+    checks = {
+        "finite": bool(torch.isfinite(got).all()),
+        "symmetric tiles within the limit of K1": err <= lim,
+        "gram_diag_sum is the diagonal's sum": tr == tr_ref,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"plain-function checks failed: {failed}")
 
 
 def _chain_rows(x):
@@ -973,6 +1032,9 @@ def _profile_step(make_gp, x, y, tag: str) -> None:
 MAUNA_N_ORACLE = 4096
 K3_RTOL = 5e-5  # the JAX gates expr_matvec_mauna / expr_matvec_ard_d3
 K4_RTOL = 3e-3  # the JAX gate expr_vjp_mauna, per parameter array
+# the composite posterior's test points: one 256-wide chunk besides the
+# y-solve, every solve at the CG cap (1,000 points, 5 solves, took 55 s)
+T_EXPR = 256
 # K4 against the float64 plain version on the zero-mean cotangent: 14x the
 # worst error measured on one H100 over phases 12 and 16 (1.4e-5, the
 # composite's first variance at n = 100k), below the float32 plain
@@ -1326,7 +1388,7 @@ def phase_expr_fit() -> dict:
     through K4."""
     from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
 
-    x, y, xt, truth = _mauna_data(N_MAIN, T_MAIN)
+    x, y, xt, truth = _mauna_data(N_MAIN, T_EXPR)
     gp = _mauna_model()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1365,7 +1427,7 @@ def phase_expr_fit() -> dict:
 
 def phase_expr_serve(fit: dict) -> dict:
     """The composite serving main path: ``.posterior`` of the fitted
-    composite at 1,000 points midway between training points (the chunked
+    composite at 256 points midway between training points (the chunked
     mBCG route), every CG matvec through K3."""
     gp, xt, truth = fit["gp"], fit["xt"], fit["truth"]
     torch.cuda.synchronize()
@@ -1379,7 +1441,7 @@ def phase_expr_serve(fit: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     stats = post.solve_stats
     rmse = float(torch.sqrt(torch.mean((post.mean - truth) ** 2)))
-    log(f"[expr-serve] N={N_MAIN} t={T_MAIN} posterior(method='auto'): wall "
+    log(f"[expr-serve] N={N_MAIN} t={T_EXPR} posterior(method='auto'): wall "
         f"{wall:.3f} s, CG iters {stats['iters']}, true rel resid "
         f"{[float(f'{r:.3e}') for r in stats['rel_resid']]}, launches "
         f"{counts}, peak mem {peak / 1e9:.3f} GB, mean RMSE vs the noise-free "
@@ -1389,7 +1451,7 @@ def phase_expr_serve(fit: dict) -> dict:
         "K3 launched, no K1": counts["K3"] > 0 and counts["K1"] == 0,
         "finite, shape": bool(torch.isfinite(post.mean).all()
                               and torch.isfinite(post.var).all())
-        and tuple(post.mean.shape) == (T_MAIN,),
+        and tuple(post.mean.shape) == (T_EXPR,),
         "var >= 0": bool((post.var >= 0).all()),
         "true rel resid <= 1e-3 on every solve": max(stats["rel_resid"]) <= 1e-3,
         "mean RMSE <= 0.05": rmse <= 0.05,
@@ -2196,7 +2258,9 @@ def phase_changepoint() -> dict:
 # --- the scale clauses and the approximation slice -------------------------
 
 N_GATE, T_GATE = 50_000, 32  # check_pallas_tpu.py:413-431
-N_STORY, STORY_STEPS = 200_000, 30  # VERDICT.md "Next round" #2
+# VERDICT.md "Next round" #2; 30 steps until the smoke outgrew its time
+# limit (every gate read the same at step 10 as at 30)
+N_STORY, STORY_STEPS = 200_000, 10
 N_NY, M_NY, NY_STEPS = 100_000, 2_048, 20  # examples/08_approx_fit.py
 # the JAX package's default ratio, m = 0.1·n: 3 steps, for the smoke's time
 M_NY_RATIO, NY_STEPS_RATIO = 10_000, 3
@@ -2272,7 +2336,7 @@ def phase_var_gate() -> dict:
 def phase_story_200k() -> dict:
     """The 200k story: ``GaussianProcess(SE~s, Constant + Linear).fit(
     method="auto")`` at N = 200,000, where a float32 K would take 160 GB
-    (the card has 80), 30 Adam steps with the 100k story's knobs, then
+    (the card has 80), 10 Adam steps with the 100k story's knobs, then
     ``.posterior`` at 1,000 points on the chunked route."""
     x, y = _trend_data(N_STORY, seed=24)
     gp = _fit_model()
@@ -2572,8 +2636,9 @@ PW_NOISE = 1e-2
 # 1,024 paths at N = 3,000 and 8,000 on the CPU); the mean of the ratio
 # over the test points is held to [0.6, 1.4]
 PW_VAR_BAND, PW_VAR_MEAN_BAND = (0.3, 2.5), (0.6, 1.4)
-# examples/10_kernel_search_mauna.py's knobs
-SEARCH_DEPTH, SEARCH_RESTARTS, SEARCH_STEPS = 2, 2, 150
+# examples/10_kernel_search_mauna.py's knobs, its 2 restarts cut to 1 for
+# the time limit (the example runs at 2 in tools/examples_on_card.py)
+SEARCH_DEPTH, SEARCH_RESTARTS, SEARCH_STEPS = 2, 1, 150
 B_BATCH, N_BATCH = 8, 4_000
 BATCH_RTOL = 1e-3
 
@@ -2829,7 +2894,7 @@ def _mauna_csv():
 
 def phase_search() -> dict:
     """Example 10: ``greedy_kernel_search`` on the Mauna Loa record
-    (max_depth=2, restarts=2, steps=150) in float64 on the card (the
+    (max_depth=2, restarts=1, steps=150) in float64 on the card (the
     dense route at n = 420; K5/K6 take float32 only), then the found
     structure's posterior through the facade on the held-out 20%: BIC
     trace, structure, candidates, wall, held-out MSE; the score ≤ the best
@@ -2941,9 +3006,14 @@ def phase_batched_fit() -> dict:
 N_NUTS, C_NUTS, NUTS_DEPTH = 1_000, 8, 6
 NUTS_WARMUP, NUTS_SEG, NUTS_RESUMED = 300, 300, 2
 NUTS_PRIOR_VAR = 9.0  # the N(0, 3²) prior on the unconstrained leaves
-# HMC's draws cut 300 → 100 when phases 34-36 joined the smoke (its time
-# limit); the gates are unchanged
-HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 300, 100, 16
+# HMC's draws cut 300 → 100 when phases 34-36 joined the smoke, and its
+# warmup 300 → 100 when the smoke outgrew its time limit again; the gates
+# are unchanged
+HMC_WARMUP, HMC_DRAWS, HMC_LEAPFROG = 100, 100, 16
+# the transition held card against CPU and traced: config 3's max_depth 6
+# cut to 4 (at most 15 leapfrogs; 63 took ~30 s on the CPU side), from
+# fixed draws
+NUTS_CHECK_DEPTH = 4
 NUTS_DIV_MAX, NUTS_ACCEPT = 0.05, (0.6, 0.95)
 NUTS_RHAT_MAX, NUTS_ESS_MIN, NUTS_MAX_LAG = 1.1, 100.0, 200
 NUTS_NOISE_BAND = (0.007, 0.014)  # posterior mean of σ² (truth 0.01)
@@ -3043,8 +3113,9 @@ def phase_nuts() -> dict:
     host's synchronisations counted (``set_sync_debug_mode("warn")``)
     against the lock-step doublings; the gates of ``PERF.md`` §2 (finite
     log-probs, divergences, accept, split-R̂, ESS, σ², NUTS against
-    ``hmc_chains``); one transition on the card against the CPU with the
-    same draws; one transition under ``gpt.trace`` (torch.profiler)."""
+    ``hmc_chains``); one transition (at ``NUTS_CHECK_DEPTH``) on the card
+    against the CPU with the same draws, and the same transition under
+    ``gpt.trace`` (torch.profiler)."""
     import tempfile
     import warnings
 
@@ -3166,7 +3237,7 @@ def phase_nuts() -> dict:
     q_card, unr = ravel_tree(q_last, batch_ndim=1)
     logprob_cpu, _ = _nuts_target(device="cpu")
     d_cpu = tnuts.generator_draws(torch.Generator().manual_seed(11),
-                                  q_card.cpu(), NUTS_DEPTH)(0)
+                                  q_card.cpu(), NUTS_CHECK_DEPTH)(0)
     outs = {}
     for tag, dev, lpf in (("card", "cuda", logprob),
                           ("cpu", "cpu", logprob_cpu)):
@@ -3175,28 +3246,29 @@ def phase_nuts() -> dict:
         lp0, g0 = lpg(q)
         outs[tag] = [t.cpu() if isinstance(t, torch.Tensor) else t
                      for t in tnuts.nuts_transition(
-                         lpg, NUTS_DEPTH,
+                         lpg, NUTS_CHECK_DEPTH,
                          tnuts.NUTSDraws(*(t.to(dev) for t in d_cpu)), q, lp0,
                          g0, res.step_size.to(dev), res.inv_mass.to(dev))]
     q_err = float((outs["card"][0] - outs["cpu"][0]).abs().max())
     same_steps = torch.equal(outs["card"][4], outs["cpu"][4])
     same_div = torch.equal(outs["card"][5], outs["cpu"][5])
-    log(f"[nuts] one transition of {C_NUTS} chains, card against CPU "
-        f"(float64, same draws): n_steps {outs['card'][4].tolist()} / "
+    log(f"[nuts] one transition of {C_NUTS} chains at max_depth "
+        f"{NUTS_CHECK_DEPTH}, card against CPU (float64, same draws): "
+        f"n_steps {outs['card'][4].tolist()} / "
         f"{outs['cpu'][4].tolist()}, diverging identical {same_div}, "
         f"max|q diff| {q_err:.3e} (limit 1e-8)")
 
-    # one transition under the port's trace (torch.profiler)
+    # the same transition under the port's trace (torch.profiler)
     lpg = value_and_grad(logprob, unr)
     lp0, g0 = lpg(q_card)
-    d_card = tnuts.generator_draws(gen, q_card, NUTS_DEPTH)(0)
+    d_card = tnuts.NUTSDraws(*(t.to("cuda") for t in d_cpu))
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         with gpt.trace(tmp) as prof:
             t0 = time.perf_counter()
             with named_scope("nuts_transition"):
-                out = tnuts.nuts_transition(lpg, NUTS_DEPTH, d_card, q_card,
-                                            lp0, g0, res.step_size,
+                out = tnuts.nuts_transition(lpg, NUTS_CHECK_DEPTH, d_card,
+                                            q_card, lp0, g0, res.step_size,
                                             res.inv_mass)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
@@ -3210,7 +3282,7 @@ def phase_nuts() -> dict:
         if e.device_type == DeviceType.CUDA and e.name != "nuts_transition":
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
                 e.time_range.end - e.time_range.start)
-    log(f"[nuts] one transition under gpt.trace: {out[6]} doublings, "
+    log(f"[nuts] the same transition under gpt.trace: {out[6]} doublings, "
         f"{leapfrogs} batched leapfrogs, wall {wall_us / 1e3:.2f} ms "
         f"({wall_us / 1e3 / leapfrogs:.3f} ms per leapfrog of {C_NUTS} "
         f"chains), {n_kernels} device kernels ({n_kernels / leapfrogs:.1f} "
@@ -3345,9 +3417,10 @@ def phase_m11() -> dict:
 # --- phases 34-36: the multi-GPU slice -------------------------------------
 # P = 2 gloo ranks share the one card (NCCL refuses two ranks on one GPU);
 # P = 1 over NCCL checks the NCCL path. Each configuration is one spawn
-# that runs the three phases' rank work; the gates are taken here.
+# that runs the three phases' rank work, both spawns at once; the gates are
+# taken here.
 MESH_RANKS = 2
-N_MESH, MESH_STEPS, T_MESH = N_STORY, 5, 256
+N_MESH, MESH_STEPS, T_MESH = N_STORY, 2, 256  # 5 steps until the time limit
 # phase 25's knobs (FIT_KWARGS) for fit_iterative, and fit()'s step guard
 MESH_FIT_KW = dict(steps=MESH_STEPS, lr=0.05, num_probes=8, max_iters=25,
                    precond_m=256, tol=3e-3, early_exit=False, resid_guard=0.5,
@@ -3411,7 +3484,7 @@ def _mc_generator(chain: int) -> torch.Generator:
 
 
 def _rank_mesh_fit(mesh) -> dict:
-    """Phase 34 on one rank: 5 Adam steps of ``fit_iterative(mesh=…)`` at
+    """Phase 34 on one rank: 2 Adam steps of ``fit_iterative(mesh=…)`` at
     N = 200,000 (the story's data, phase 25's knobs), the chunked posterior
     at 256 points under the mesh, and the composite's mesh matvec and VJP;
     launch counts, seconds per step and peak memory of this rank."""
@@ -3650,22 +3723,33 @@ def _bc_oracle() -> dict:
 
 def phase_multi_gpu() -> dict:
     """Phases 34-36 (the multi-GPU slice): P = 2 gloo ranks on the one card
-    and P = 1 over NCCL, each a spawn of ``_rank_multi_gpu``; then the
+    and P = 1 over NCCL, each a spawn of ``_rank_multi_gpu``, the two
+    spawns at the same time (for the time limit: the ranks' seconds per
+    step include the other spawn's work on the card); then the
     single-process references and every gate, each limit beside its
     reading."""
     from gaussianprocessfundamentals_tpu_torch.parallel.meshes import launch
 
     torch.cuda.empty_cache()  # the ranks share the card with this process
-    runs = {}
-    for backend, P in (("gloo", MESH_RANKS), ("nccl", 1)):
+
+    def spawn(backend, P):
         t0 = time.perf_counter()
-        runs[backend] = launch(_rank_multi_gpu, P, backend=backend,
-                               device="cuda", timeout=MESH_TIMEOUT)
+        ranks = launch(_rank_multi_gpu, P, backend=backend, device="cuda",
+                       timeout=MESH_TIMEOUT)
+        return ranks, time.perf_counter() - t0
+
+    configs = (("gloo", MESH_RANKS), ("nccl", 1))
+    with ThreadPoolExecutor(len(configs)) as pool:
+        futures = {b: pool.submit(spawn, b, P) for b, P in configs}
+        done = {b: f.result() for b, f in futures.items()}
+    runs = {}
+    for backend, P in configs:
+        runs[backend], wall = done[backend]
         log(f"[multi-gpu] {P} rank(s), {backend} on "
             f"{torch.cuda.get_device_name(0)} (cuda:"
             f"{[r['device'] for r in runs[backend]]}): ranks ran "
             f"{[(r['backend'], r['world']) for r in runs[backend]]} in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{wall:.1f} s, beside the other configuration's spawn")
     gl, nc = runs["gloo"], runs["nccl"][0]
     checks = {}
 
@@ -3858,41 +3942,53 @@ def _kernel_entry(name, source, replaces, by_path, worst, times) -> dict:
             "library_ms": None}
 
 
+def _timed(fn, *args):
+    """Run one phase and log its wall time beside the smoke's so far."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    now = time.perf_counter()
+    log(f"[phase-time] {fn.__name__}: {now - t0:.1f} s (smoke at "
+        f"{now - T_START:.1f} s)")
+    return out
+
+
 def main() -> None:
-    smi = phase_device()
-    phase_build()
-    k1_worst = phase_kernel_check()
-    phase_oracle()
-    main_res = phase_main()
-    k2_worst = phase_k2_check()
-    phase_fit_oracle()
-    fit_res = phase_fit()
-    fit_time = phase_fit_time(fit_res["x"])
-    phase_profile(fit_res["x"], fit_res["y"])
-    k3_worst = phase_k3_check()
-    k4_worst = phase_k4_check()
-    phase_expr_oracle()
-    expr_fit = phase_expr_fit()
-    expr_serve = phase_expr_serve(expr_fit)
-    expr_time = phase_expr_time(expr_fit["x"])
-    _profile_step(_mauna_model, expr_fit["x"], expr_fit["y"], "expr-profile")
-    k56_worst = phase_k56_check()
-    dense = phase_dense_serve()
-    seg = phase_segmented()
-    part = phase_partitioned(seg.pop("segments"))
-    k56_time = phase_k56_time()
-    cp = phase_changepoint()
-    var_gate = phase_var_gate()
-    story = phase_story_200k()
-    ny = phase_nystroem()
-    phase_skc_ski()
-    svgp_res = phase_svgp()
-    pw = phase_pathwise()
-    search = phase_search()
-    batched = phase_batched_fit()
-    nuts = phase_nuts()
-    m11 = phase_m11()
-    multi = phase_multi_gpu()
+    smi = _timed(phase_device)
+    _timed(phase_build)
+    k1_worst = _timed(phase_kernel_check)
+    _timed(phase_oracle)
+    main_res = _timed(phase_main)
+    _timed(phase_plain_functions)
+    k2_worst = _timed(phase_k2_check)
+    _timed(phase_fit_oracle)
+    fit_res = _timed(phase_fit)
+    fit_time = _timed(phase_fit_time, fit_res["x"])
+    _timed(phase_profile, fit_res["x"], fit_res["y"])
+    k3_worst = _timed(phase_k3_check)
+    k4_worst = _timed(phase_k4_check)
+    _timed(phase_expr_oracle)
+    expr_fit = _timed(phase_expr_fit)
+    expr_serve = _timed(phase_expr_serve, expr_fit)
+    expr_time = _timed(phase_expr_time, expr_fit["x"])
+    _timed(_profile_step, _mauna_model, expr_fit["x"], expr_fit["y"],
+           "expr-profile")
+    k56_worst = _timed(phase_k56_check)
+    dense = _timed(phase_dense_serve)
+    seg = _timed(phase_segmented)
+    part = _timed(phase_partitioned, seg.pop("segments"))
+    k56_time = _timed(phase_k56_time)
+    cp = _timed(phase_changepoint)
+    var_gate = _timed(phase_var_gate)
+    story = _timed(phase_story_200k)
+    ny = _timed(phase_nystroem)
+    _timed(phase_skc_ski)
+    svgp_res = _timed(phase_svgp)
+    pw = _timed(phase_pathwise)
+    search = _timed(phase_search)
+    batched = _timed(phase_batched_fit)
+    nuts = _timed(phase_nuts)
+    m11 = _timed(phase_m11)
+    multi = _timed(phase_multi_gpu)
     k1_worst = _worse(_worse(k1_worst, main_res["worst"]), fit_time["k1_worst"])
     k2_worst = _worse(k2_worst, fit_time["worst"])
     k3_worst = _worse(k3_worst, expr_time["k3_worst"])

@@ -6,12 +6,15 @@ diagonal jitter, the change-point gate, the Nyström inducing ratio, the
 float32 matmul precision, the jitter escalations of ``fit`` and the dense
 working-set budget that routes large fits to the matrix-free iterative
 route. ``ChangePointGate`` is the JAX package's enum (``config.py:25-35``),
-with the same value strings, so kernel and mean ASTs interchange.
+with the same value strings, so kernel and mean ASTs interchange;
+:func:`default_dtype` is ``config.py:71``'s.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+
+import torch
 
 
 class ChangePointGate(enum.Enum):
@@ -51,3 +54,9 @@ class GPConfig:
 
 
 DEFAULT_CONFIG = GPConfig()
+
+
+def default_dtype() -> torch.dtype:
+    """The dtype new tensors take: ``torch.get_default_dtype()`` (the JAX
+    package's float64-when-x64-is-enabled)."""
+    return torch.get_default_dtype()

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gaussianprocessfundamentals_tpu_torch.config import default_dtype
 from gaussianprocessfundamentals_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
@@ -287,4 +288,4 @@ def _merge(a: Kernel, b: Kernel, op_cls) -> Tuple[Kernel, ...]:
 
 
 def _dt(dtype):
-    return dtype if dtype is not None else torch.get_default_dtype()
+    return dtype if dtype is not None else default_dtype()

@@ -224,6 +224,7 @@ class SquaredExponentialKernel(_LengthscaleKernel):
 
 
 RBFKernel = SquaredExponentialKernel
+KERNEL_ALIAS = {"RBFKernel": SquaredExponentialKernel}
 
 
 @register_kernel

@@ -24,8 +24,24 @@ def sq_euclidean(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(aa - 2.0 * ab + bb.transpose(-1, -2), 0.0)
 
 
+def euclidean(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances with a gradient-safe square root: where d² is 0
+    (the diagonal) the root takes 1 and the result is replaced by 0, so
+    the gradient there is 0 and not inf; values elsewhere are √d²."""
+    d2 = sq_euclidean(a, b)
+    pos = d2 > 0.0
+    safe = torch.sqrt(torch.where(pos, d2, torch.ones_like(d2)))
+    return torch.where(pos, safe, torch.zeros_like(d2))
+
+
 def manhattan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """L1 distances by broadcasting: O(n·m·d) memory, fine at GP's small d."""
     if a.shape[-1] == 1:
         return torch.abs(a - b.transpose(-1, -2))
     return torch.sum(torch.abs(a[..., :, None, :] - b[..., None, :, :]), dim=-1)
+
+
+def sq_manhattan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared L1 distances."""
+    d = manhattan(a, b)
+    return d * d

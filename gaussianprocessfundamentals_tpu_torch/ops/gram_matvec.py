@@ -3,13 +3,15 @@ that pick a kernel for them.
 
 Counterpart of ``gram_matvec`` (``:36``), ``gram_matvec_cross``
 (``:98``), ``streamed_gram_matvec`` (``:78``),
-``streamed_gram_matvec_cross`` (``:123``), ``lowrank_gram_vjp`` (``:205``)
-and ``lowrank_gram_vjp_cross`` (``:233``) of
-``gaussianprocessfundamentals_tpu/ops/gram_matvec.py``: K(x1, x2)·V and the
-gradient of Σ(UWᵀ)∘K(x1, x2) built in [block, n2] row panels, each used and
-dropped, so memory is O(block·n2) and K never exists whole. This is the CPU
-path of the port and the plain version the CUDA kernels of
-:mod:`.cuda_gram` (K1) and :mod:`.cuda_lrvjp` (K2) are held against.
+``streamed_gram_matvec_cross`` (``:123``),
+``streamed_gram_matvec_symmetric`` (``:143``), ``gram_diag_sum``
+(``:200``), ``lowrank_gram_vjp`` (``:205``) and ``lowrank_gram_vjp_cross``
+(``:233``) of ``gaussianprocessfundamentals_tpu/ops/gram_matvec.py``:
+K(x1, x2)·V and the gradient of Σ(UWᵀ)∘K(x1, x2) built in [block, n2]
+row panels, each used and dropped, so memory is O(block·n2) and K never
+exists whole. This is the CPU path of the port and the plain version the
+CUDA kernels of :mod:`.cuda_gram` (K1) and :mod:`.cuda_lrvjp` (K2) are
+held against.
 
 The routers :func:`gram_matvec` and :func:`gram_matvec_cross` hand a
 product to the version :func:`.cuda_gram.fused_matvec_cross_for` picks for
@@ -20,7 +22,8 @@ callers; the port's own paths (the iterative core, the mesh products) hold
 the closure :func:`.cuda_gram.fused_matvec_cross_for` returns, which
 resolves the route once per operator. The JAX package's
 ``GPF_FORCE_FUSED`` and ``GPF_SYM`` switches are not ported: on a card the
-kernel is the product.
+kernel is the product, and the symmetric tile product is there only for
+callers that ask for it by name.
 """
 from __future__ import annotations
 
@@ -51,6 +54,45 @@ def streamed_gram_matvec(
 ) -> torch.Tensor:
     """K(x, x) @ V in row panels."""
     return streamed_gram_matvec_cross(kernel, x, x, V, block)
+
+
+def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    pad = rows - a.shape[0]
+    return torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))]) if pad else a
+
+
+def streamed_gram_matvec_symmetric(
+    kernel, x: torch.Tensor, V: torch.Tensor, block: int = 4096
+) -> torch.Tensor:
+    """K(x, x) @ V from the upper triangle of the [block, block] tile grid:
+    each tile K_ij (i ≤ j) is built once, and an off-diagonal one serves
+    both out_i += K_ij·V_j and out_j += K_ijᵀ·V_i, so nb(nb + 1)/2 of the
+    nb² tiles are evaluated. x and V are zero-padded to whole tiles: the
+    padded rows of V are zero, so they add nothing to the real rows, and
+    the padded output rows are dropped. V: [n, r] or [n]. Opt-in: no route
+    of the port sends a product here."""
+    n = x.shape[0]
+    if n == 0:
+        return V.new_zeros(V.shape)
+    blk = min(block, n)
+    nb = -(-n // blk)
+    xp = _pad_rows(x, nb * blk)
+    Vp = _pad_rows(V, nb * blk)
+    xs = [xp[i * blk:(i + 1) * blk] for i in range(nb)]
+    vs = [Vp[i * blk:(i + 1) * blk] for i in range(nb)]
+    acc = [torch.zeros_like(v) for v in vs]
+    for i in range(nb):
+        for j in range(i, nb):
+            K = kernel.gram(xs[i], xs[j])
+            acc[i] = acc[i] + K @ vs[j]
+            if j != i:
+                acc[j] = acc[j] + K.T @ vs[i]
+    return torch.cat(acc)[:n]
+
+
+def gram_diag_sum(kernel, x: torch.Tensor) -> torch.Tensor:
+    """tr K(x, x) without the matrix."""
+    return torch.sum(kernel.diag(x))
 
 
 def gram_matvec_cross(kernel, x1: torch.Tensor, x2: torch.Tensor,

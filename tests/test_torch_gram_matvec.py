@@ -100,3 +100,73 @@ def test_wrapper_rejects_tensors_off_cpu_and_cuda():
                                           0.1, 1.0, "se")
     with pytest.raises(ValueError, match="kind"):
         cuda_gram.fused_gram_matvec_cross(x, x, x, 0.1, 1.0, "rq")
+
+
+def _pair_of(jk, jp):
+    """The JAX kernel and parameters, and the port's kernel with them
+    installed (float64)."""
+    import jax
+
+    tk = gpt.kernel_from_dict(jk.to_dict())
+    gpt.params_from_numpy(tk, jax.tree_util.tree_map(np.asarray, jp),
+                          dtype=torch.float64)
+    return tk
+
+
+def _sym_kernels(x):
+    import gaussianprocessfundamentals_tpu as gpf
+
+    se = gpf.SquaredExponentialKernel(scaled=True)
+    se_p = {"lengthscale": jnp.asarray(0.1), "variance": jnp.asarray(1.3)}
+    comp = (gpf.SquaredExponentialKernel(scaled=True) * gpf.PeriodicKernel()
+            + gpf.LinearKernel())
+    xr = np.stack([x.min(0), x.max(0)], -1)
+    return {"se": (se, se_p), "composite": (comp, comp.init_params(xr, len(x)))}
+
+
+@pytest.mark.parametrize("name", ["se", "composite"])
+@pytest.mark.parametrize("block", [128, 256])
+def test_symmetric_tile_matvec_matches_jax_and_the_row_panels(name, block):
+    """``streamed_gram_matvec_symmetric`` at n = 700 (the last tile
+    zero-padded for both blocks), float64, against the JAX package's and
+    against the port's row-panel ``streamed_gram_matvec``: 1e-10 absolute,
+    as ``tests/test_iterative.py``'s symmetric test holds the JAX one."""
+    from gaussianprocessfundamentals_tpu.ops import gram_matvec as jgm
+    from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
+        streamed_gram_matvec_symmetric,
+    )
+
+    rng = np.random.default_rng(6)
+    x = np.sort(rng.uniform(0, 1, (700, 1)), 0)
+    V = rng.standard_normal((700, 5))
+    jk, jp = _sym_kernels(x)[name]
+    tk = _pair_of(jk, jp)
+    ref = np.asarray(jgm.streamed_gram_matvec_symmetric(
+        jk, jp, jnp.asarray(x), jnp.asarray(V), block))
+    xt, Vt = torch.from_numpy(x), torch.from_numpy(V)
+    got = streamed_gram_matvec_symmetric(tk, xt, Vt, block)
+    assert got.shape == (700, 5) and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(
+        got.numpy(), streamed_gram_matvec(tk, xt, Vt, block).numpy(),
+        rtol=0, atol=1e-10)
+    # a vector V gives the first column
+    np.testing.assert_allclose(
+        streamed_gram_matvec_symmetric(tk, xt, Vt[:, 0], block).numpy(),
+        got[:, 0].numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["se", "composite"])
+def test_gram_diag_sum_matches_jax(name):
+    from gaussianprocessfundamentals_tpu.ops import gram_matvec as jgm
+    from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
+        gram_diag_sum,
+    )
+
+    x = np.sort(np.random.default_rng(7).uniform(0, 1, (300, 1)), 0)
+    jk, jp = _sym_kernels(x)[name]
+    tk = _pair_of(jk, jp)
+    ref = float(jgm.gram_diag_sum(jk, jp, jnp.asarray(x)))
+    got = gram_diag_sum(tk, torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(float(got), ref, rtol=1e-12)

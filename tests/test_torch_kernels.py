@@ -108,3 +108,82 @@ def test_set_params_rejects_wrong_names():
     with pytest.raises(KeyError):
         k.set_params({"lengthscale": torch.tensor(0.1)})
     assert not k.has_params()
+
+
+@pytest.mark.parametrize("fn", ["euclidean", "sq_manhattan"])
+@pytest.mark.parametrize("d", [1, 3])
+def test_distances_match_jax(fn, d):
+    """``euclidean`` and ``sq_manhattan`` of ``ops/distances.py`` against
+    the JAX package's at 1e-12 relative, float64; x1 shares rows with x2,
+    so the guarded square root's zeros are among the values."""
+    from gaussianprocessfundamentals_tpu.ops import distances as jdist
+    from gaussianprocessfundamentals_tpu_torch.ops import distances as tdist
+
+    rng = np.random.default_rng(11)
+    x2 = rng.uniform(-1.0, 2.0, (23, d))
+    x1 = np.concatenate([x2[:5], rng.uniform(-1.0, 2.0, (32, d))])
+    ref = np.asarray(getattr(jdist, fn)(jnp.asarray(x1), jnp.asarray(x2)))
+    got = getattr(tdist, fn)(torch.from_numpy(x1), torch.from_numpy(x2))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("repeated", [False, True])
+def test_euclidean_gradient_on_the_diagonal_is_zero_as_in_jax(repeated):
+    """The gradient of Σᵢⱼ |xᵢ − xⱼ| through ``euclidean(x, x)`` at d = 1,
+    where d² is exactly 0 on the diagonal (and between repeated rows): the
+    guarded root makes those entries' gradient 0, not inf or NaN, in both
+    packages, and the gradients agree within 1e-12. (At d > 1 the
+    |a|² − 2ab + |b|² expansion can leave a rounding residue of ~4e-16 on
+    the diagonal in both packages, which the guard does not take.)"""
+    import jax
+
+    from gaussianprocessfundamentals_tpu.ops import distances as jdist
+    from gaussianprocessfundamentals_tpu_torch.ops import distances as tdist
+
+    x = np.random.default_rng(12).uniform(0.0, 1.0, (9, 1))
+    if repeated:
+        x = np.concatenate([x, x[:3]])
+    jgrad = np.asarray(jax.grad(
+        lambda a: jnp.sum(jdist.euclidean(a, a)))(jnp.asarray(x)))
+    jdiag = np.asarray(jax.grad(
+        lambda a: jnp.trace(jdist.euclidean(a, a)))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    tdist.euclidean(xt, xt).sum().backward()
+    xd = torch.from_numpy(x).requires_grad_()
+    torch.diagonal(tdist.euclidean(xd, xd)).sum().backward()
+    assert np.all(jdiag == 0.0) and torch.all(xd.grad == 0.0)
+    assert np.all(np.isfinite(jgrad))
+    np.testing.assert_allclose(xt.grad.numpy(), jgrad, rtol=0, atol=1e-12)
+
+
+def test_kernel_alias_and_default_dtype_match_jax():
+    import jax
+
+    from gaussianprocessfundamentals_tpu.config import (
+        default_dtype as jax_default_dtype,
+    )
+    from gaussianprocessfundamentals_tpu.kernels.leaves import (
+        KERNEL_ALIAS as JAX_ALIAS,
+    )
+    from gaussianprocessfundamentals_tpu_torch.config import default_dtype
+    from gaussianprocessfundamentals_tpu_torch.kernels.leaves import (
+        KERNEL_ALIAS,
+    )
+
+    assert {k: v.__name__ for k, v in KERNEL_ALIAS.items()} == {
+        k: v.__name__ for k, v in JAX_ALIAS.items()}
+    assert KERNEL_ALIAS["RBFKernel"] is gpt.RBFKernel
+    assert jax.config.jax_enable_x64  # the suite runs the JAX side in x64
+    assert str(jax_default_dtype().dtype) == "float64"
+    old = torch.get_default_dtype()
+    try:
+        for dt in (torch.float64, torch.float32):
+            torch.set_default_dtype(dt)
+            assert default_dtype() is dt
+            # unset dtypes of new hyperparameters follow it
+            k = gpt.SquaredExponentialKernel()
+            assert k.init_params(np.array([[0.0, 1.0]]), 10)[
+                "lengthscale"].dtype is dt
+    finally:
+        torch.set_default_dtype(old)

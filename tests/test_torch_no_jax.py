@@ -110,6 +110,13 @@ ll = gpt.compat.get_metric(gpt.compat.MetricType.LL)(
     sub.x_train, sub.y_train, 0.01)
 with gpt.timed("tiny"):
     vec, _ = gpt.serialize_params(u0)
+# every example script of the port (their argument parsing sits under
+# __main__, so importing one runs nothing)
+import importlib.util, pathlib
+examples = sorted(pathlib.Path("examples/torch").glob("*.py"))
+for path in examples:
+    spec = importlib.util.spec_from_file_location("example_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
@@ -137,6 +144,7 @@ print(json.dumps({
                    and bool(torch.isfinite(ll)) and vec.shape == (6,)),
     "nuts_draws": list(nres.samples["x"].shape) + list(cres.log_probs.shape),
     "fit_steps": len(res.history) + len(res2.history),
+    "examples": [p.stem[:2] for p in examples],
 }))
 """
 
@@ -152,7 +160,8 @@ def test_port_imports_and_serves_without_jax():
     SVGP fit and its predictive, pathwise draws through random Fourier
     features, a one-base kernel search and a batched fit; a 5-draw NUTS
     chain, two lock-step NUTS chains on the stacked GP NLL, the Mauna Loa
-    CSV, a smoothed-grid subset, the metric factory and a timer."""
+    CSV, a smoothed-grid subset, the metric factory and a timer; and it
+    imports every script in ``examples/torch`` (01-10)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "1"  # one torch thread, as in the other port tests
@@ -163,15 +172,22 @@ def test_port_imports_and_serves_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"jax": [], "reference": [], "triton": False, "finite": True,
-                   "fit_steps": 6, "nuts_draws": [5, 2, 2, 3]}
+                   "fit_steps": 6, "nuts_draws": [5, 2, 2, 3],
+                   "examples": [f"{i:02d}" for i in range(1, 11)]}
 
 
 def test_no_module_of_the_port_imports_jax():
-    """Also the imports inside functions, which the run above may not reach."""
+    """Also the imports inside functions, which the run above may not
+    reach, in the package and in its example scripts."""
     paths = sorted((ROOT / "gaussianprocessfundamentals_tpu_torch").rglob("*.py"))
-    assert paths
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert paths and len(examples) == 10
+    paths += examples
     for path in paths:
         for line in path.read_text().splitlines():
             stripped = line.strip()
             if stripped.startswith(("import ", "from ")):
-                assert "jax" not in stripped.split()[1], (path, line)
+                name = stripped.split()[1]
+                assert "jax" not in name, (path, line)
+                assert name.split(".")[0] != "gaussianprocessfundamentals_tpu", (
+                    path, line)

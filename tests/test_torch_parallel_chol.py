@@ -4,8 +4,13 @@ block-cyclic distributed Cholesky (the factor through
 from K and from each rank's own block-rows, the exact posterior), and the
 dry run over 4 ranks. See ``tests/test_torch_parallel.py`` for the layout.
 n = 96 rows in blocks of 8 (the JAX package needs n a multiple of
-block·P). Tolerance 1e-8 relative.
+block·P). Tolerance 1e-8 relative. As there, the inputs are made once and
+each JAX reference is computed once, on 2 devices, for both world sizes
+of the port (the factor is compared dense, the block-rows in each world
+size's own layout).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +29,10 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 4,
 
 N_BC = 96
 BLOCK = 8
+REF_P = 2  # the JAX references' mesh
 
 
+@functools.lru_cache(maxsize=None)
 def _chol_inputs():
     x, y = data(N_BC, seed=5)
     jk, jp = kernels()["se"]
@@ -41,10 +48,10 @@ def port(tmp_path_factory):
         P: {"block_cholesky": _chol_inputs()} for P in (2, 4)})
 
 
-@pytest.mark.parametrize("P", [2, 4])
-def test_block_cyclic_cholesky_and_solves_match_jax(port, P):
+@functools.lru_cache(maxsize=None)
+def _jax_cholesky():
     c = _chol_inputs()
-    mesh = jmesh(P)
+    mesh = jmesh(REF_P)
     K = jnp.asarray(c["K"])
     Kn = K + 0.1 * jnp.eye(N_BC)
     y, Y = jnp.asarray(c["y"]), jnp.asarray(c["Y"])
@@ -55,9 +62,16 @@ def test_block_cyclic_cholesky_and_solves_match_jax(port, P):
         solve = jbc.distributed_chol_solve(L, y, mesh, "tp", BLOCK)
         solve_inv = jbc.distributed_chol_solve_inv(L2, Linv, Y, mesh, "tp",
                                                    BLOCK)
-    dense = np.asarray(jbc.from_cyclic_blocks(L, P))
+    dense = np.asarray(jbc.from_cyclic_blocks(L, REF_P))
     np.testing.assert_allclose(dense, np.linalg.cholesky(np.asarray(Kn)),
                                atol=1e-10)
+    return dense, logdet, logdet2, Linv, solve, solve_inv
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_block_cyclic_cholesky_and_solves_match_jax(port, P):
+    K = jnp.asarray(_chol_inputs()["K"])
+    dense, logdet, logdet2, Linv, solve, solve_inv = _jax_cholesky()
     for r in port[P]:
         got = r["block_cholesky"]
         L_port = bc.from_cyclic_blocks(torch.from_numpy(got["L"]), P)
@@ -72,11 +86,11 @@ def test_block_cyclic_cholesky_and_solves_match_jax(port, P):
               "cyclic block-rows with the noise on the global diagonal")
 
 
-@pytest.mark.parametrize("P", [2, 4])
-def test_distributed_nll_and_posterior_match_jax(port, P):
+@functools.lru_cache(maxsize=None)
+def _jax_nll_and_posterior():
     c = _chol_inputs()
     jk, jp = kernels()["se"]
-    mesh = jmesh(P)
+    mesh = jmesh(REF_P)
     K, y = jnp.asarray(c["K"]), jnp.asarray(c["y"])
     with mesh:
         nll = jbc.distributed_nll(K, y, 0.1, 1e-6, mesh, block=BLOCK)
@@ -85,6 +99,12 @@ def test_distributed_nll_and_posterior_match_jax(port, P):
         post = jbc.distributed_posterior(jk, jp, jnp.asarray(c["x"]), y,
                                          jnp.asarray(c["xt"]), 0.1, 1e-6,
                                          mesh, block=BLOCK)
+    return nll, nll_u, post
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_distributed_nll_and_posterior_match_jax(port, P):
+    nll, nll_u, post = _jax_nll_and_posterior()
     for r in port[P]:
         got = r["block_cholesky"]
         close(got["nll"], nll, 1e-8, "nll")

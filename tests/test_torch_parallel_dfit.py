@@ -2,8 +2,12 @@
 ``distributed_nll_value_and_grad`` (with and without probes) and 3 steps
 of ``fit_distributed`` on the JAX package's Rademacher probes, at 2 and 4
 ranks. See ``tests/test_torch_parallel.py`` for the layout. n = 96 rows in
-blocks of 8. Tolerances, relative: 1e-8, and 1e-6 for the fit.
+blocks of 8. Tolerances, relative: 1e-8, and 1e-6 for the fit. As there,
+the inputs are made once and the JAX reference is computed once, on 2
+devices, for both world sizes of the port.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import jax.random as jr
@@ -20,8 +24,10 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 4,
 N_BC = 96
 BLOCK = 8
 NOISE = 0.05
+REF_P = 2  # the JAX reference's mesh
 
 
+@functools.lru_cache(maxsize=None)
 def _fit_inputs():
     x, y = data(N_BC, seed=5)
     jk, jp = kernels()["se"]
@@ -40,11 +46,11 @@ def port(tmp_path_factory):
                                     for P in (2, 4)})
 
 
-@pytest.mark.parametrize("P", [2, 4])
-def test_distributed_nll_value_and_grad_and_fit_match_jax(port, P):
+@functools.lru_cache(maxsize=None)
+def _jax_reference():
     c = _fit_inputs()
     jk, jp = kernels()["se"]
-    mesh = jmesh(P)
+    mesh = jmesh(REF_P)
     x, y = jnp.asarray(c["x"]), jnp.asarray(c["y"])
     key = jr.PRNGKey(9)
     with mesh:
@@ -55,6 +61,12 @@ def test_distributed_nll_value_and_grad_and_fit_match_jax(port, P):
     kp, noise, hist = jdf.fit_distributed(
         gpf.SquaredExponentialKernel(), x, y, mesh, key, block=BLOCK,
         probes=4, steps=3, lr=0.1)
+    return nll, g, g_noise, nll0, g0, g0_noise, kp, noise, hist
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_distributed_nll_value_and_grad_and_fit_match_jax(port, P):
+    nll, g, g_noise, nll0, g0, g0_noise, kp, noise, hist = _jax_reference()
     for r in port[P]:
         got = r["distributed_fit"]
         close(got["nll"], nll, 1e-8, "nll")

@@ -3,8 +3,12 @@
 package's probes (restarts one after another), the mesh posteriors, and
 the dp × tp restart step at 2 × 2. See ``tests/test_torch_parallel.py``
 for the layout of these tests. Tolerances, relative: 1e-6 for the CG-based
-fit histories and posteriors, 1e-8 for the restart step.
+fit histories and posteriors, 1e-8 for the restart step. As there, the
+inputs are made once and each JAX reference is computed once, on 2
+devices, for both world sizes of the port.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import jax.random as jr
@@ -39,8 +43,10 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 4,
 
 FIT_KW = dict(num_probes=S, max_iters=30, tol=1e-8, precond_m=0,
               early_exit=False)
+REF_P = 2  # the JAX references' mesh
 
 
+@functools.lru_cache(maxsize=None)
 def _cases():
     x, y = data()
     xd, yd = data(N_DIV)
@@ -64,6 +70,7 @@ def _cases():
     return cases
 
 
+@functools.lru_cache(maxsize=None)
 def _restart_inputs():
     x, y = data(40, seed=2)
     jk, jp = kernels()["composite"]
@@ -83,17 +90,22 @@ def port(tmp_path_factory):
         2: _cases(), 4: dict(_cases(), restart_step=_restart_inputs())})
 
 
-@pytest.mark.parametrize("P", [2, 4])
-def test_mesh_fit_iterative_matches_jax_step_for_step(port, P):
+@functools.lru_cache(maxsize=None)
+def _jax_fit_iterative():
     jk, _ = kernels()["se"]
     x, y = data(N_DIV)
-    mesh = jmesh(P)
+    mesh = jmesh(REF_P)
     c = _cases()["fit_iterative"]
     with mesh:
-        kp, noise, hist, diag = jit_.fit_iterative(
+        return jit_.fit_iterative(
             jk, jnp.asarray(x), jnp.asarray(y), jr.PRNGKey(3),
             callback=lambda i, v: None, block=16, mesh=mesh, mesh_axis="tp",
             return_diagnostics=True, **c["kw"])
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_mesh_fit_iterative_matches_jax_step_for_step(port, P):
+    kp, noise, hist, diag = _jax_fit_iterative()
     for r in port[P]:
         got = r["fit_iterative"]
         close(got["hist"], hist, 1e-6, "history")
@@ -102,21 +114,26 @@ def test_mesh_fit_iterative_matches_jax_step_for_step(port, P):
         assert got["frozen"] == pytest.approx(diag)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_fit_routed():
+    x, y = data(N_DIV)
+    mesh = jmesh(REF_P)
+    ikw = dict(FIT_KW, mesh=mesh, mesh_axis="tp", block=16,
+               callback=lambda i, v: None)
+    with mesh:
+        return gpf.fit(gpf.SquaredExponentialKernel(scaled=True),
+                       jnp.asarray(x), jnp.asarray(y), key=jr.PRNGKey(11),
+                       method="auto", optimize_noise=True, noise=NOISE,
+                       steps=3, lr=0.1, config=JGPConfig(dense_hbm_budget=1.0),
+                       iterative_kwargs=ikw)
+
+
 @pytest.mark.parametrize("P", [2, 4])
 def test_mesh_fit_routes_and_runs_restarts_one_after_another(port, P):
     """``fit(method="auto", iterative_kwargs={"mesh": …})`` against the JAX
     package's on its probes; with restarts=1 the mesh fit equals the same
     fit without a mesh (restarts run one after another there too)."""
-    x, y = data(N_DIV)
-    mesh = jmesh(P)
-    ikw = dict(FIT_KW, mesh=mesh, mesh_axis="tp", block=16,
-               callback=lambda i, v: None)
-    with mesh:
-        res = gpf.fit(gpf.SquaredExponentialKernel(scaled=True),
-                      jnp.asarray(x), jnp.asarray(y), key=jr.PRNGKey(11),
-                      method="auto", optimize_noise=True, noise=NOISE,
-                      steps=3, lr=0.1, config=JGPConfig(dense_hbm_budget=1.0),
-                      iterative_kwargs=ikw)
+    res = _jax_fit_routed()
     for r in port[P]:
         got = r["fit_routed"]
         close(got["hist"], res.history, 1e-6, "history")
@@ -126,12 +143,12 @@ def test_mesh_fit_routes_and_runs_restarts_one_after_another(port, P):
                     "restarts")
 
 
-@pytest.mark.parametrize("P", [2, 4])
-def test_mesh_posteriors_match_jax(port, P):
+@functools.lru_cache(maxsize=None)
+def _jax_posteriors():
     jk, jp = kernels()["se"]
     c = _cases()["posterior"]
     x, y, xt = (jnp.asarray(c[k]) for k in ("x", "y", "xt"))
-    mesh = jmesh(P)
+    mesh = jmesh(REF_P)
     with mesh:
         mu, var = jit_.iterative_posterior_chunked(
             jk, jp, x, y, xt, jnp.asarray(NOISE), block=16, precond_m=8,
@@ -140,6 +157,12 @@ def test_mesh_posteriors_match_jax(port, P):
                                          precond_m=8)
     mu2, var2 = jit_.iterative_posterior(jk, jp, x, y, xt, NOISE, block=16,
                                          precond_m=8)
+    return mu, var, mu_m, mu2, var2
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_mesh_posteriors_match_jax(port, P):
+    mu, var, mu_m, mu2, var2 = _jax_posteriors()
     for r in port[P]:
         got = r["posterior"]
         close_tree(got["chunked"], (mu, var), 1e-6, "chunked")
