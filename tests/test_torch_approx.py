@@ -24,6 +24,7 @@ from gaussianprocessfundamentals_tpu_torch.linalg import cg
 from gaussianprocessfundamentals_tpu_torch.linalg import nystroem as ny
 from gaussianprocessfundamentals_tpu_torch.linalg import ski
 from gaussianprocessfundamentals_tpu_torch.objectives import skc
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)
@@ -62,6 +63,23 @@ def _close(got, ref, rtol, what=""):
                                err_msg=what)
 
 
+def _jax_nystroem(jk):
+    """The JAX side of the Nyström test as one jitted program (the noise an
+    argument: one compile for both cases)."""
+    @jax.jit
+    def ref(jp, x, y, z, xt, B, noise):
+        st = jax_ny.nystroem_factor(jk, jp, x, z, noise, JITTER)
+        return {"solve_y": jax_ny.woodbury_solve(st, y),
+                "solve_B": jax_ny.woodbury_solve(st, B),
+                "logdet": jax_ny.nystroem_logdet(st, 300),
+                "mll": [jax_ny.nystroem_mll(jk, jp, x, y, z, noise, JITTER,
+                                            titsias_correction=t)
+                        for t in (False, True)],
+                "posterior": jax_ny.nystroem_posterior(jk, jp, x, y, z, xt,
+                                                       noise, JITTER)}
+    return ref
+
+
 @pytest.mark.parametrize("noise", [1e-2, 0.1])
 def test_nystroem_solve_logdet_mll_and_posterior_match_jax(noise):
     """``woodbury_solve`` ([n] and [n, k]), ``nystroem_logdet``,
@@ -73,25 +91,17 @@ def test_nystroem_solve_logdet_mll_and_posterior_match_jax(noise):
     B = np.random.default_rng(2).standard_normal((300, 3))
     jk, jp, tk = _se()
     X, Y, Z, XT, BT = _t(x, y, z, xt, B)
-    jst = jax_ny.nystroem_factor(jk, jp, jnp.asarray(x), jnp.asarray(z),
-                                 noise, JITTER)
+    ref = _jax_nystroem(jk)(jp, *map(jnp.asarray, (x, y, z, xt, B)), noise)
     st = ny.nystroem_factor(tk, X, Z, noise, JITTER)
-    for b, bt in ((y, Y), (B, BT)):
-        _close(ny.woodbury_solve(st, bt), jax_ny.woodbury_solve(jst, b), 1e-9,
-               "woodbury_solve")
-    _close(ny.nystroem_logdet(st, 300), jax_ny.nystroem_logdet(jst, 300),
-           1e-9, "logdet")
+    for bt, r in ((Y, ref["solve_y"]), (BT, ref["solve_B"])):
+        _close(ny.woodbury_solve(st, bt), r, 1e-9, "woodbury_solve")
+    _close(ny.nystroem_logdet(st, 300), ref["logdet"], 1e-9, "logdet")
     for titsias in (False, True):
         _close(ny.nystroem_mll(tk, X, Y, Z, noise, JITTER,
                                titsias_correction=titsias),
-               jax_ny.nystroem_mll(jk, jp, jnp.asarray(x), jnp.asarray(y),
-                                   jnp.asarray(z), noise, JITTER,
-                                   titsias_correction=titsias),
-               1e-9, f"mll titsias={titsias}")
+               ref["mll"][titsias], 1e-9, f"mll titsias={titsias}")
     mu, var = ny.nystroem_posterior(tk, X, Y, Z, XT, noise, JITTER)
-    jmu, jvar = jax_ny.nystroem_posterior(jk, jp, jnp.asarray(x),
-                                          jnp.asarray(y), jnp.asarray(z),
-                                          jnp.asarray(xt), noise, JITTER)
+    jmu, jvar = ref["posterior"]
     _close(mu, jmu, 1e-9, "posterior mean")
     _close(var, jvar, 1e-9, "posterior variance")
     assert gpt.ops.cuda_dense_gram.se_gram.launches == 0  # CPU: plain Grams
@@ -126,13 +136,12 @@ def test_skc_bounds_match_jax(m, num_iters):
         up = skc.skc_upper_bound(tk, X, Y, Z, 0.1, JITTER, num_iters=num_iters)
         g_lo = torch.autograd.grad(lo, p["lengthscale"])[0]
         g_up = torch.autograd.grad(up, p["lengthscale"])[0]
-    j_lo, jg_lo = jax.value_and_grad(
-        lambda ls: jax_skc.skc_lower_bound(
-            jk, {**jp, "lengthscale": ls}, *args))(jp["lengthscale"])
-    j_up, jg_up = jax.value_and_grad(
-        lambda ls: jax_skc.skc_upper_bound(
+    (j_lo, jg_lo), (j_up, jg_up) = jax.jit(lambda ls: (
+        jax.value_and_grad(lambda ls: jax_skc.skc_lower_bound(
+            jk, {**jp, "lengthscale": ls}, *args))(ls),
+        jax.value_and_grad(lambda ls: jax_skc.skc_upper_bound(
             jk, {**jp, "lengthscale": ls}, *args,
-            num_iters=num_iters))(jp["lengthscale"])
+            num_iters=num_iters))(ls)))(jp["lengthscale"])
     _close(lo.detach(), j_lo, 1e-9, "lower")
     _close(up.detach(), j_up, 1e-9, "upper")
     # differentiating the Cholesky of K_mm (κ ~ 1e8 at ℓ = 0.2, m ≥ 25):
@@ -221,9 +230,9 @@ def test_ski_mll_matches_jax(toeplitz):
         val = fn(tk, X, Yg, G, noise, JITTER, stats=stats)
         grads = torch.autograd.grad(
             val, [p["lengthscale"], p["variance"], noise, Yg])
-    jval, jgrads = jax.value_and_grad(
+    jval, jgrads = jax.jit(jax.value_and_grad(
         lambda pp, nz, yy: jfn(jk, pp, jnp.asarray(x), yy, jnp.asarray(grid),
-                               nz, JITTER), argnums=(0, 1, 2))(
+                               nz, JITTER), argnums=(0, 1, 2)))(
         jp, jnp.asarray(0.05), jnp.asarray(y))
     _close(val.detach(), jval, 1e-6, "value")
     _close(grads[0], jgrads[0]["lengthscale"], 1e-6, "d/d lengthscale")
@@ -254,7 +263,7 @@ def test_cg_solve_implicit_gradient_matches_jax():
                                        tol=1e-10, max_iters=400)
         return jnp.sum(jnp.asarray(w) * sol)
 
-    jval, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+    jval, jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2)))(
         jp, jnp.asarray(0.05), jnp.asarray(b))
     X, Bt, Wt = _t(x, b, w)
     s = torch.tensor(0.05, dtype=torch.float64, requires_grad=True)

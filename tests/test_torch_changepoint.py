@@ -30,6 +30,7 @@ from gaussianprocessfundamentals_tpu.kernels.partition import (
 )
 from gaussianprocessfundamentals_tpu.utils import checkpoint as jax_ckpt
 from gaussianprocessfundamentals_tpu_torch.ops import expr
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

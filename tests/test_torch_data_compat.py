@@ -29,6 +29,7 @@ from gaussianprocessfundamentals_tpu_torch import compat as tcompat
 from gaussianprocessfundamentals_tpu_torch.data import datasets as tdata
 from gaussianprocessfundamentals_tpu_torch.utils import auxiliary as taux
 from gaussianprocessfundamentals_tpu_torch.utils import profiling
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)
@@ -226,6 +227,7 @@ def test_get_metric_matches_jax(name, args, kw):
     jx, jy, tx, ty = jnp.asarray(x), jnp.asarray(y), torch.from_numpy(x), \
         torch.from_numpy(y)
     noise = 0.1
+    jf = jax.jit(jf, static_argnums=0)
     if name == "mse":
         ref = jf(jk, jp, jx[::2], jy[::2], jx[1::2], jy[1::2], noise)
         got = tf(tk, tx[::2], ty[::2], tx[1::2], ty[1::2], noise)
@@ -260,8 +262,9 @@ def test_get_metric_blockwise_and_refusal():
     tx = [torch.from_numpy(a) for a in (x1, x2)]
     ty = [torch.from_numpy(a) for a in (y1, y2)]
     for mt in ("LL", "BIC"):
-        ref = jcompat.get_metric(getattr(jcompat.MetricType, mt),
-                                 blockwise=True)(jks, jps, jx, jy, 0.1)
+        jf = jcompat.get_metric(getattr(jcompat.MetricType, mt),
+                                blockwise=True)
+        ref = jax.jit(lambda ps, xs, ys: jf(jks, ps, xs, ys, 0.1))(jps, jx, jy)
         got = tcompat.get_metric(getattr(tcompat.MetricType, mt),
                                  blockwise=True)(tks, tx, ty, 0.1)
         np.testing.assert_allclose(float(got), float(ref), rtol=1e-9)

@@ -29,6 +29,7 @@ from gaussianprocessfundamentals_tpu.ops.pallas_gram import (
 from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
 from gaussianprocessfundamentals_tpu_torch.models import exact
 from gaussianprocessfundamentals_tpu_torch.ops import cuda_dense_gram as dg
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

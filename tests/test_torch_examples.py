@@ -26,6 +26,7 @@ import gaussianprocessfundamentals_tpu_torch as gpt
 from gaussianprocessfundamentals_tpu_torch.models.search import (
     default_base_kernels,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

@@ -28,6 +28,7 @@ from gaussianprocessfundamentals_tpu.ops import pallas_expr as pe
 from gaussianprocessfundamentals_tpu_torch.ops import cuda_expr, expr
 from gaussianprocessfundamentals_tpu_torch.ops import expr_codegen as cg
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.

@@ -8,6 +8,8 @@ Tolerances are stated per test. XLA's CPU ``exp``/``log`` are
 float32-accurate even in float64, so values that go through many of them
 agree to ~1e-8 relative, not to round-off.
 """
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import jax.random as jr
@@ -29,6 +31,7 @@ from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
 from gaussianprocessfundamentals_tpu_torch.linalg.mbcg import slq_logdet
 from gaussianprocessfundamentals_tpu_torch.models import iterative
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.
@@ -81,7 +84,8 @@ def test_dense_nll_and_gradient_match_jax():
         return jax_chol.nll(jk.gram(p, jnp.asarray(x), jnp.asarray(x)), yy,
                             noise, 1e-8)
 
-    ref, (gp_ref, gn_ref, gy_ref) = jax.value_and_grad(jax_nll, (0, 1, 2))(
+    ref, (gp_ref, gn_ref, gy_ref) = jax.jit(
+        jax.value_and_grad(jax_nll, (0, 1, 2)))(
         jp, jnp.asarray(NOISE), jnp.asarray(y))
     xt = torch.from_numpy(x)
     noise = torch.tensor(NOISE, dtype=torch.float64, requires_grad=True)
@@ -125,14 +129,20 @@ def test_slq_logdet_matches_host_form():
     _close(float(got), ref, 1e-10)
 
 
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _probes(key, n, s, m):
+    key_u, key_w = jr.split(key)
+    if m == 0:
+        return jr.rademacher(key_u, (n, s)).astype(jnp.float64), None
+    return (jr.normal(key_u, (n, s), jnp.float64),
+            jr.normal(key_w, (m, s), jnp.float64))
+
+
 def _jax_probes(key, n, s, m):
     """The (u, w) draws of the JAX package's ``_core_impl``
     (``iterative.py:284-304``)."""
-    key_u, key_w = jr.split(key)
-    if m == 0:
-        return np.array(jr.rademacher(key_u, (n, s)).astype(jnp.float64)), None
-    return (np.array(jr.normal(key_u, (n, s), jnp.float64)),
-            np.array(jr.normal(key_w, (m, s), jnp.float64)))
+    u, w = _probes(key, n, s, m)
+    return np.array(u), (None if w is None else np.array(w))
 
 
 def _port_w(jk, jp, tk, x, m, w):
@@ -140,8 +150,8 @@ def _port_w(jk, jp, tk, x, m, w):
     JAX package's: the preconditioner bases of the two packages span the
     same space but differ in column signs and order, so w is expressed in
     the port's basis, w' = diag(1/sv)·W_bᵀ·W_jax·diag(sv_jax)·w."""
-    _, Wj, svj, _, _ = jax_iterative.build_preconditioner(
-        jk, jp, jnp.asarray(x), m, NOISE)
+    Wj, svj = jax.jit(lambda p, xx: jax_iterative.build_preconditioner(
+        jk, p, xx, m, NOISE)[1:3])(jp, jnp.asarray(x))
     _, Wp, svp, _, _ = iterative.build_preconditioner(
         tk, torch.from_numpy(x), m, NOISE)
     a = Wp.numpy().T @ (np.asarray(Wj) @ (np.asarray(svj)[:, None] * w))
@@ -167,9 +177,9 @@ def test_iterative_nll_and_grad_match_jax(monkeypatch, materialize, with_mean):
     key = jr.PRNGKey(7)
     kw = dict(max_iters=5, tol=1e-14, precond_m=m, early_exit=False,
               materialize=materialize)
-    ref = jax_iterative._core_impl(
-        jk, jp, jnp.asarray(x), jnp.asarray(y), NOISE, key, num_probes=s,
-        block=128, mean=jm, mean_params=jmp, **kw)
+    ref = jax.jit(partial(jax_iterative._core_impl, jk, num_probes=s,
+                          block=128, mean=jm, **kw))(
+        jp, jnp.asarray(x), jnp.asarray(y), NOISE, key, mean_params=jmp)
     ref_nll = jax_iterative.iterative_nll_and_grad(
         jk, jp, jnp.asarray(x), jnp.asarray(y), NOISE, key, num_probes=s,
         block=128, mean=jm, mean_params=jmp, **kw)[0]
@@ -485,8 +495,9 @@ def test_composite_core_impl_matches_jax(materialize):
     key = jr.PRNGKey(5)
     kw = dict(max_iters=6, tol=1e-14, precond_m=m, early_exit=False,
               materialize=materialize)
-    ref = jax_iterative._core_impl(jk, jp, jnp.asarray(x), jnp.asarray(y),
-                                   NOISE, key, num_probes=s, block=128, **kw)
+    ref = jax.jit(partial(jax_iterative._core_impl, jk, num_probes=s,
+                          block=128, **kw))(
+        jp, jnp.asarray(x), jnp.asarray(y), NOISE, key)
     u, w = _jax_probes(key, n, s, m)
     w = _port_w(jk, jp, tk, x, m, w)
     got = iterative._core_impl(tk, torch.from_numpy(x), torch.from_numpy(y),

@@ -16,6 +16,7 @@ import gaussianprocessfundamentals_tpu_torch as gpt
 from gaussianprocessfundamentals_tpu.fit import fit as jax_fit_mod
 from gaussianprocessfundamentals_tpu_torch.fit import fit as fit_mod
 from gaussianprocessfundamentals_tpu_torch.fit.transforms import leaf_copy
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)
@@ -93,7 +94,7 @@ def test_make_approx_nll_matches_jax(approximation, m, noise):
                                  torch.from_numpy(y), approximation, z,
                                  optimize_noise=True,
                                  optimize_inducing=inducing)
-    jval, jgrad = jax.value_and_grad(jfn)(ju)
+    jval, jgrad = jax.jit(jax.value_and_grad(jfn))(ju)
     u = leaf_copy(u)
     val = fn(u)
     val.backward()

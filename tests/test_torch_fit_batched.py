@@ -17,6 +17,7 @@ from gaussianprocessfundamentals_tpu.fit import fit as jax_fit_mod
 from gaussianprocessfundamentals_tpu_torch.config import GPConfig
 from gaussianprocessfundamentals_tpu_torch.fit import fit as fit_mod
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

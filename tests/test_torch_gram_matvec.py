@@ -20,6 +20,7 @@ from gaussianprocessfundamentals_tpu_torch.ops import cuda_gram
 from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
     streamed_gram_matvec,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.

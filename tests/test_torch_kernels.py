@@ -13,6 +13,7 @@ import gaussianprocessfundamentals_tpu_torch as gpt
 from gaussianprocessfundamentals_tpu.kernels.base import (
     kernel_from_dict as jax_kernel_from_dict,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.

@@ -20,6 +20,7 @@ from gaussianprocessfundamentals_tpu_torch.linalg.pivchol import (
 from gaussianprocessfundamentals_tpu_torch.models.iterative import (
     build_preconditioner,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.

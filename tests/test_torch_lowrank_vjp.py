@@ -31,6 +31,7 @@ from gaussianprocessfundamentals_tpu_torch.ops.gram_matvec import (
     lowrank_gram_vjp,
     lowrank_gram_vjp_cross,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.

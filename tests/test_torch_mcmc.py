@@ -32,6 +32,7 @@ from gaussianprocessfundamentals_tpu_torch.utils.tree import (
     tree_map,
     tree_unflatten,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)
@@ -107,7 +108,8 @@ def test_leapfrog_matches_jax():
     jlp, tlp, ju0, tu0 = _gp_targets()
     jp = jax.tree_util.tree_map(lambda l: 0.3 * jnp.ones_like(l), ju0)
     tp = tree_map(lambda l: torch.full_like(l, 0.3), tu0)
-    jq, jpo = jhmc.leapfrog(jax.value_and_grad(jlp), ju0, jp, 0.05, 12)
+    jq, jpo = jax.jit(lambda q, p: jhmc.leapfrog(jax.value_and_grad(jlp), q,
+                                                 p, 0.05, 12))(ju0, jp)
 
     def tlpg(q):
         with torch.enable_grad():

@@ -22,6 +22,7 @@ from gaussianprocessfundamentals_tpu.fit.fit import (
 )
 from gaussianprocessfundamentals_tpu.objectives import metrics as jmet
 from gaussianprocessfundamentals_tpu_torch.objectives import metrics as tmet
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""

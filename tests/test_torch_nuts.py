@@ -9,8 +9,10 @@ leapfrog counts and divergences identical, every float within 1e-9
 (``|a − b| ≤ 1e-9·max(1, |b|)``). One batched call of 4 chains that stop
 at different depths is held to 4 JAX calls. Then the ports of
 ``tests/test_nuts.py``'s sampling checks. Every JAX function is jitted
-once per target at dim 3 and max_depth 5.
+once per target at dim 3 and max_depth 5: the targets are made once, and
+one transition's draws are one compiled function called per key.
 """
+import functools
 from functools import partial
 
 import jax
@@ -34,6 +36,7 @@ from gaussianprocessfundamentals_tpu_torch.utils.tree import (
     ravel_tree,
     tree_leaves,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)
@@ -55,30 +58,32 @@ def _draws(key, dim):
     """One transition's draws as ``_nuts_kernel`` makes them: the momentum
     from split(key, 3)[0], then per doubling split(key, 4) → (key, kd, kt,
     km) with the direction uniform in the default float dtype, and per
-    leaf split(kt)."""
+    leaf split(kt) (a scan over the doubling's leaves: the same keys as
+    a Python loop, in a program that compiles in half the time)."""
     key_mom, _, k = jr.split(key, 3)
     mom = jr.normal(key_mom, (dim,), jnp.float64)
+
+    def leaf(kt, _):
+        kt, sk = jr.split(kt)
+        return kt, jr.uniform(sk, (), jnp.float64)
+
     dirs, merges, leaves = [], [], []
     for j in range(MAX_DEPTH):
         k, kd, kt, km = jr.split(k, 4)
         dirs.append(jr.uniform(kd, ()))
         merges.append(jr.uniform(km, (), jnp.float64))
-        for _ in range(1 << j):
-            kt, sk = jr.split(kt)
-            leaves.append(jr.uniform(sk, (), jnp.float64))
-    return mom, jnp.stack(dirs), jnp.stack(merges), jnp.stack(leaves)
-
-
-_draws_many = jax.jit(jax.vmap(_draws, in_axes=(0, None)), static_argnums=(1,))
+        leaves.append(jax.lax.scan(leaf, kt, None, length=1 << j)[1])
+    return mom, jnp.stack(dirs), jnp.stack(merges), jnp.concatenate(leaves)
 
 
 def _replay(chain_keys):
     """A draw source from C chains' [T] transition keys: transition t of
     chain c takes ``_draws(chain_keys[c][t])``."""
-    mom, dirs, merges, leaves = (
-        np.stack(a) for a in zip(*(
-            [np.asarray(v) for v in _draws_many(jnp.stack(ks), DIM)]
-            for ks in chain_keys)))
+    def chain(keys):  # the four draws over the chain's transitions, [T, ...]
+        return [np.stack(a) for a in zip(*(_draws(k, DIM) for k in keys))]
+
+    mom, dirs, merges, leaves = (np.stack(a)
+                                 for a in zip(*map(chain, chain_keys)))
 
     def source(t):
         return tnuts.NUTSDraws(torch.from_numpy(mom[:, t]),
@@ -100,6 +105,7 @@ def _nuts_keys(key, num_warmup, num_samples):
 
 # --- targets: (JAX log-prob of a tree, port log-prob of a tree, q0) ---------
 
+@functools.lru_cache(maxsize=None)
 def _gauss_targets():
     s = jnp.asarray(SCALES)
     st = torch.from_numpy(SCALES)
@@ -108,6 +114,7 @@ def _gauss_targets():
             {"x": np.array([0.05, -0.8, 4.0])})
 
 
+@functools.lru_cache(maxsize=None)
 def _gp_problem(n=64):
     x, y = gpf.synth_se(n=n, lengthscale=0.2, noise_sd=0.1, seed=0)
     jk = gpf.Matern52Kernel(scaled=True)
@@ -150,10 +157,16 @@ def _gp_u0(n, shift):
     return unravel(flat + torch.as_tensor(shift, dtype=torch.float64))
 
 
+_JTRANSITIONS = {}  # JAX log-prob → (jitted transition, jitted value+grad)
+
+
 def _jtransition(jlp, q0_tree):
-    _, unravel = jax.flatten_util.ravel_pytree(q0_tree)
-    lpg = jax.value_and_grad(lambda qf: jlp(unravel(qf)))
-    return jax.jit(jnuts._nuts_kernel(lpg, MAX_DEPTH)), lpg
+    if jlp not in _JTRANSITIONS:
+        _, unravel = jax.flatten_util.ravel_pytree(q0_tree)
+        lpg = jax.value_and_grad(lambda qf: jlp(unravel(qf)))
+        _JTRANSITIONS[jlp] = (jax.jit(jnuts._nuts_kernel(lpg, MAX_DEPTH)),
+                              jax.jit(lpg))
+    return _JTRANSITIONS[jlp]
 
 
 def _port_transition(tlp, q0_tree, stacked=False):
@@ -174,7 +187,8 @@ def _run_transition_case(jlp, tlp, q0_np_tree, q0_t_tree, keys, eps,
     out = []
     for key in keys:
         ref = [np.asarray(v) for v in
-               jtrans(key, qf, lp0, g0, eps, jnp.asarray(inv_mass))]
+               jtrans(key, qf, lp0, g0, np.float64(eps),
+                      jnp.asarray(inv_mass))]
         got = tnuts.nuts_transition(
             lpg, MAX_DEPTH, _replay([key[None]])(0), q, tlp0, tg0,
             torch.tensor([eps], dtype=torch.float64),

@@ -21,6 +21,7 @@ from gaussianprocessfundamentals_tpu.kernels.base import (
     kernel_from_dict as jax_kernel_from_dict,
 )
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.

@@ -5,6 +5,7 @@ import fnmatch
 import re
 import tomllib
 from pathlib import Path
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "gaussianprocessfundamentals_tpu_torch"

@@ -13,6 +13,7 @@ from gaussianprocessfundamentals_tpu_torch.parallel import meshes
 
 import torch_parallel_ranks as ranks
 from torch_parallel_jax import N, close, data, kernels, spec
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 
 def test_gram_matvec_routers_match_jax():

@@ -15,6 +15,7 @@ from gaussianprocessfundamentals_tpu.models.iterative import (
     iterative_posterior_chunked as jax_iterative_posterior_chunked,
 )
 from gaussianprocessfundamentals_tpu.utils import checkpoint as jax_checkpoint
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # The suite runs one pytest-xdist worker per core: torch's own thread pool
 # on top of that oversubscribes the CPU and slows every worker.

@@ -15,6 +15,7 @@ import gaussianprocessfundamentals_tpu_torch as gpt
 from gaussianprocessfundamentals_tpu.models import rff as jrff
 from gaussianprocessfundamentals_tpu_torch.linalg import cholesky as chol
 from gaussianprocessfundamentals_tpu_torch.models import rff as trff
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

@@ -46,6 +46,7 @@ from gaussianprocessfundamentals_tpu_torch.ops.cuda_lrvjp import (
     fused_lowrank_vjp_cross_for,
     vjp_route,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

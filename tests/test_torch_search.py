@@ -15,6 +15,7 @@ from gaussianprocessfundamentals_tpu.models.search import (
 )
 from gaussianprocessfundamentals_tpu_torch.models import search as search_mod
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

@@ -27,6 +27,7 @@ from gaussianprocessfundamentals_tpu_torch.utils.tree import (
     tree_leaves,
     tree_map,
 )
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

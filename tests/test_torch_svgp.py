@@ -19,6 +19,7 @@ import gaussianprocessfundamentals_tpu_torch as gpt
 from gaussianprocessfundamentals_tpu.models import svgp as jsvgp
 from gaussianprocessfundamentals_tpu_torch.models import svgp as tsvgp
 from gaussianprocessfundamentals_tpu_torch.utils.tree import tree_leaves
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)
@@ -99,8 +100,8 @@ def test_svgp_elbo_and_gradients_match_jax(with_mean):
     if with_mean:
         jm, mp, tm = _means()
     xb, yb = jnp.asarray(x[idx]), jnp.asarray(y[idx])
-    jval, jg = jax.value_and_grad(
-        lambda p: jsvgp.svgp_elbo(jk, p, xb, yb, N, jm, mp))(jp)
+    jval, jg = jax.jit(jax.value_and_grad(
+        lambda p: jsvgp.svgp_elbo(jk, p, xb, yb, N, jm, mp)))(jp)
     tp, _ = tsvgp.svgp_adam_init(gpt.svgp_params_from_numpy(tk, jp), 0.0)
     tval = tsvgp.svgp_elbo(tk, tp, torch.from_numpy(x[idx]),
                            torch.from_numpy(y[idx]), N, tm)
@@ -119,7 +120,8 @@ def test_svgp_predict_and_collapsed_elbo_match_jax():
     jk = gpf.SquaredExponentialKernel(scaled=True)
     tk = gpt.SquaredExponentialKernel(scaled=True)
     jm, mp, tm = _means()
-    jmu, jvar = jsvgp.svgp_predict(jk, jp, jnp.asarray(xt), jm, mp)
+    jmu, jvar = jax.jit(lambda p, xx: jsvgp.svgp_predict(jk, p, xx, jm, mp))(
+        jp, jnp.asarray(xt))
     tmu, tvar = tsvgp.svgp_predict(
         tk, gpt.svgp_params_from_numpy(tk, jp), torch.from_numpy(xt), tm)
     _close(tmu.numpy(), jmu, 1e-8, "mean")
@@ -128,8 +130,8 @@ def test_svgp_predict_and_collapsed_elbo_match_jax():
     kp = {"lengthscale": jnp.asarray(0.2), "variance": jnp.asarray(1.3)}
     gpt.params_from_numpy(tk, kp)
     z = x[::25]
-    jb = jsvgp.collapsed_elbo(jk, kp, jnp.asarray(x), jnp.asarray(y),
-                              jnp.asarray(z), 0.05)
+    jb = jax.jit(lambda *a: jsvgp.collapsed_elbo(jk, *a, 0.05))(
+        kp, jnp.asarray(x), jnp.asarray(y), jnp.asarray(z))
     tb = gpt.collapsed_elbo(tk, torch.from_numpy(x), torch.from_numpy(y),
                             torch.from_numpy(z), 0.05)
     _close(float(tb), float(jb), 1e-8, "collapsed elbo")

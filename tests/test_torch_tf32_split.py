@@ -23,6 +23,7 @@ limit the card checks K2 with; one TF32 pass misses it.
 import numpy as np
 import pytest
 import torch
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 K3_RTOL = 5e-5  # chip_smoke.K3_RTOL: the JAX gates expr_matvec_*
 K2_RTOL_CANCEL = 1e-4  # chip_smoke.K2_RTOL_CANCEL

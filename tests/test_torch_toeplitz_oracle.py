@@ -9,6 +9,7 @@ import torch
 import gaussianprocessfundamentals_tpu_torch as gpt
 from gaussianprocessfundamentals_tpu.utils import toeplitz_oracle as jax_oracle
 from gaussianprocessfundamentals_tpu_torch.utils import toeplitz_oracle as oracle
+from torch_parallel_threads import one_blas_thread  # noqa: F401  (autouse)
 
 # one torch thread per xdist worker (see test_torch_operators.py)
 torch.set_num_threads(1)

@@ -2,6 +2,9 @@
 (``tests/test_torch_parallel*.py``): shared data, kernels, probes, the
 comparisons and the one spawn per world size. Imports JAX, so spawned
 ranks never import it (they run ``torch_parallel_ranks``)."""
+import pickle
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import jax.random as jr
@@ -66,18 +69,25 @@ def spec(jk, jp):
             "params": jax.tree_util.tree_map(np.asarray, jp)}
 
 
-def jax_probes(key, n, s, m):
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _probes(key, n, s, m):
     key_u, key_w = jr.split(key)
     if m == 0:
-        return np.array(jr.rademacher(key_u, (n, s)).astype(jnp.float64)), None
-    return (np.array(jr.normal(key_u, (n, s), jnp.float64)),
-            np.array(jr.normal(key_w, (m, s), jnp.float64)))
+        return jr.rademacher(key_u, (n, s)).astype(jnp.float64), None
+    return (jr.normal(key_u, (n, s), jnp.float64),
+            jr.normal(key_w, (m, s), jnp.float64))
+
+
+def jax_probes(key, n, s, m):
+    """The JAX package's probe draws (``iterative.py:284-304``), as numpy."""
+    u, w = _probes(key, n, s, m)
+    return np.array(u), (None if w is None else np.array(w))
 
 
 def port_w(jk, jp, x, m, w):
     """w in the port's preconditioner basis (``test_torch_fit.port_w``)."""
-    _, Wj, svj, _, _ = jit_.build_preconditioner(jk, jp, jnp.asarray(x), m,
-                                                 NOISE)
+    Wj, svj = jax.jit(lambda p, xx: jit_.build_preconditioner(
+        jk, p, xx, m, NOISE)[1:3])(jp, jnp.asarray(x))
     tk = ranks.kernel_of(spec(jk, jp))
     _, Wp, svp, _, _ = iterative.build_preconditioner(tk, torch.from_numpy(x),
                                                       m, NOISE)
@@ -92,11 +102,19 @@ def spawn(tmp_path_factory, cases_by_world: dict) -> dict:
     """world size → every rank's results of its cases: one spawn of gloo
     ranks on the CPU per world size, one torch thread each, a ``file://``
     rendezvous of its own, and a time limit on every collective and on
-    the join, so a hung rank fails its tests and not the suite."""
+    the join, so a hung rank fails its tests and not the suite.
+
+    The cases travel in a file beside the rendezvous, not as the spawn's
+    arguments: spawn writes a child's arguments into a pipe the child
+    drains only after its imports, so arguments over the pipe's buffer
+    (64 KiB) would start the ranks one after another."""
     out = {}
     for P, cases in cases_by_world.items():
-        rdv = tmp_path_factory.mktemp(f"rdv{P}") / "pg"
-        out[P] = meshes.launch(ranks.run_cases, P, (cases,), backend="gloo",
+        where = tmp_path_factory.mktemp(f"rdv{P}")
+        (where / "cases.pkl").write_bytes(pickle.dumps(cases))
+        out[P] = meshes.launch(ranks.run_cases, P,
+                               (str(where / "cases.pkl"),), backend="gloo",
                                device="cpu", timeout=SPAWN_TIMEOUT,
-                               init_method=f"file://{rdv}", threads=1)
+                               init_method=f"file://{where / 'pg'}",
+                               threads=1)
     return out

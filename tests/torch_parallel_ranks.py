@@ -2,14 +2,15 @@
 can import it (``tests/test_torch_parallel*.py`` import JAX; this module
 must not).
 
-``run_cases(cases)`` runs on every rank of a ``parallel.meshes.launch``:
-each case builds its meshes, runs the port's mesh functions on numpy
-inputs made by the test in the parent, and returns numpy results keyed by
-case name. Every rank runs every case in the same order, as their
+``run_cases(path)`` runs on every rank of a ``parallel.meshes.launch``:
+each case pickled at ``path`` builds its meshes, runs the port's mesh
+functions on numpy inputs made by the test in the parent, and returns
+numpy results keyed by case name. Every rank runs every case in the same order, as their
 collectives require.
 """
 from __future__ import annotations
 
+import pickle
 import sys
 
 import numpy as np
@@ -262,10 +263,14 @@ def hang_on_rank_one():
     return dist.get_rank()
 
 
-def run_cases(cases: dict) -> dict:
-    """Every case of ``cases`` (name → inputs) on this rank, in order;
-    returns name → numpy results, plus the backend and world size."""
+def run_cases(path: str) -> dict:
+    """Every case pickled at ``path`` (name → inputs) on this rank, in
+    order; returns name → numpy results, plus the backend and world size.
+    (The cases come in a file, not as the launch's arguments: see
+    ``torch_parallel_jax.spawn``.)"""
     assert "jax" not in sys.modules, "a rank imported JAX"
+    with open(path, "rb") as fh:
+        cases = pickle.load(fh)
     out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
     for name, inputs in cases.items():
         out[name] = _np(CASES[name.split(":")[0]](inputs))
