@@ -1,0 +1,10 @@
+"""Low-rank VJP calls of the fit window (K2 or K4): their least seconds over their device seconds (CUDA events around each call)."""
+from gpbench.lib import readers
+
+LAYER = "kernels"
+UNIT = "%"
+MOVES = "fit_step_s"
+
+
+def read(ctx):
+    return readers.roofline_percent(ctx, "lowrank_vjp")
